@@ -33,6 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 H, D = 12, 64  # gpt2-117m heads and head dim
+PROMPT_LEN, GEN = 512, 64  # the served requests' longest prompt and budget
 SEED = 0
 
 
@@ -75,28 +76,23 @@ def device_profile(fn):
 
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of one call: the kernels' time summed over ``iters``
-    calls, over ``iters`` (0 when the profiler saw no device activity)."""
+    calls, over ``iters``.  Fails where the profiler saw no device time."""
     fn()
     torch.cuda.synchronize()
     total, _ = device_profile(lambda: [fn() for _ in range(iters)])
+    check(total > 0, "the profiler recorded no device time")
     return total / iters
 
 
 def times(kernel, plain, library) -> dict:
-    """Per-call event ms of the kernel, its plain version and the library
-    call, and their device ms from the profiler.  ``ms``, ``plain_ms`` and
-    ``library_ms`` are the device times, or the event times where the
-    profiler recorded nothing (``timer`` says which)."""
-    out = {"call_ms": call_ms(kernel), "plain_call_ms": call_ms(plain, 10),
-           "library_call_ms": call_ms(library)}
-    dev = [device_ms(kernel), device_ms(plain), device_ms(library)]
-    if all(t > 0 for t in dev):
-        out.update(ms=dev[0], plain_ms=dev[1], library_ms=dev[2],
-                   timer="profiler")
-    else:
-        out.update(ms=out["call_ms"], plain_ms=out["plain_call_ms"],
-                   library_ms=out["library_call_ms"], timer="events")
-    return out
+    """``ms``, ``plain_ms``, ``library_ms``: device ms of one call of the
+    kernel, its plain version and the library call, from the profiler.
+    ``*call_ms``: CUDA-event ms per call of each, which the host's rate of
+    submission bounds where it is slower than the card."""
+    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library), "call_ms": call_ms(kernel),
+            "plain_call_ms": call_ms(plain, 10),
+            "library_call_ms": call_ms(library)}
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -156,44 +152,57 @@ def _attn_inputs(b, s, dtype, seed):
             for _ in range(3)]
 
 
-def phase_flash_attention() -> dict:
+def check_attention(q, k, v, what: str) -> list:
+    """[o err, lse err] of the kernel against its plain version on the same
+    inputs; fails unless fp32 ``o`` is within 2e-5 (bf16 ``o`` within
+    :func:`bf16_tolerance`) and ``lse`` within 2e-5."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_plain)
+    o, lse = flash_attention_fwd(q, k, v)
+    ro, rlse = flash_attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = (o.float() - ro.float()).abs()
+    lse_err = (lse - rlse).abs().max().item()
+    if q.dtype == torch.float32:
+        check(err.max().item() <= 2e-5, f"fa o {what}: {err.max().item()}")
+    else:
+        check(bool((err <= bf16_tolerance(o, ro)).all()), f"fa o {what}")
+    check(lse_err <= 2e-5, f"fa lse {what}: {lse_err}")
+    return [err.max().item(), lse_err]
+
+
+# (B, S) at H=12: ragged tails, and the serving path's prefills of one
+# request at each bucket of its ladder (256, 384, 512)
+FA_SHAPES = ((1, 1), (4, 96), (4, 427), (2, 1024), (1, 256), (1, 384),
+             (1, 512))
+
+
+def phase_flash_attention() -> tuple:
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_fwd_plain)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s in ((1, 1), (4, 96), (4, 427), (2, 1024)):
-            q, k, v = _attn_inputs(b, s, dtype, s)
-            o, lse = flash_attention_fwd(q, k, v)
-            ro, rlse = flash_attention_fwd_plain(q, k, v)
-            torch.cuda.synchronize()
-            err = (o.float() - ro.float()).abs()
-            lse_err = (lse - rlse).abs().max().item()
-            if dtype == torch.float32:
-                check(err.max().item() <= 2e-5, f"fa fp32 o ({b},{s})")
-            else:
-                check(bool((err <= bf16_tolerance(o, ro)).all()),
-                      f"fa bf16 o ({b},{s})")
-            check(lse_err <= 2e-5, f"fa lse ({b},{s}) {dtype}")
-            errs[f"{str(dtype)[6:]}_{b}x{s}"] = [err.max().item(), lse_err]
+        for b, s in FA_SHAPES:
+            key = f"{str(dtype)[6:]}_{b}x{s}"
+            errs[key] = check_attention(*_attn_inputs(b, s, dtype, s), key)
     timing = {}
     for dtype in (torch.float32, torch.bfloat16):
         for b, s in ((8, 512), (1, 512)):
+            key = f"{str(dtype)[6:]}_{b}x{s}"
             q, k, v = _attn_inputs(b, s, dtype, 1)
             q4, k4, v4 = (t.reshape(b, H, s, D) for t in (q, k, v))
             elt = q.element_size()
             nbytes = 4 * b * H * s * D * elt + b * H * s * 4
             t_bound, by = bound(nbytes, 2 * b * H * s * s * D, dtype)
-            o, _ = flash_attention_fwd(q, k, v)
-            ro, _ = flash_attention_fwd_plain(q, k, v)
-            timing[f"{str(dtype)[6:]}_{b}x{s}"] = {
-                "max_abs_err": (o.float() - ro.float()).abs().max().item(),
+            timing[key] = {
+                "max_abs_err": check_attention(q, k, v, key)[0],
                 **times(lambda: flash_attention_fwd(q, k, v),
                         lambda: flash_attention_fwd_plain(q, k, v),
                         lambda: F.scaled_dot_product_attention(
                             q4, k4, v4, is_causal=True)),
                 "bound_ms": t_bound, "bound_by": by}
     emit("flash_attention_fwd", max_err=errs, timing=timing)
-    return timing
+    return timing, set(FA_SHAPES)
 
 
 def _decode_inputs(b, s, g, dtype, lengths, seed):
@@ -216,7 +225,29 @@ def _decode_library(q, kc, vc, lengths):
         qh, kh, vh, attn_mask=mask, enable_gqa=g > 1)
 
 
-def time_decode(q, kc, vc, lengths) -> dict:
+def check_decode(q, kc, vc, lengths, what: str) -> list:
+    """[normalised o err, relative o err, m err, relative l err] of the
+    kernel's partials against its plain version on the same inputs (the
+    partials are fp32 for either input type); fails unless each is within
+    2e-5 and every empty slot gives (0, -1e30, 0)."""
+    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_fwd_plain)
+    o, m, l = flash_decode_fwd(q, kc, vc, lengths)
+    ro, rm, rl = flash_decode_fwd_plain(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    norm_err = (o / l[..., None].clamp_min(1e-30)
+                - ro / rl[..., None].clamp_min(1e-30)).abs().max()
+    rel = lambda a, r: ((a - r).abs() / r.abs().clamp_min(1.0)).max()
+    e = [norm_err.item(), rel(o, ro).item(), (m - rm).abs().max().item(),
+         rel(l, rl).item()]
+    check(all(x <= 2e-5 for x in e), f"fd {what}: {e}")
+    empty = lengths == 0
+    check(bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
+               and (o[empty] == 0).all()), f"fd empty slot {what}")
+    return e
+
+
+def time_decode(q, kc, vc, lengths, what: str) -> dict:
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
                                                   flash_decode_fwd_plain)
     b, kvh, g, d = q.shape
@@ -225,55 +256,46 @@ def time_decode(q, kc, vc, lengths) -> dict:
     nbytes = (2 * total * kvh * d * elt + q.numel() * elt + 4 * b
               + (q.numel() + 2 * b * kvh * g) * 4)
     t_bound, by = bound(nbytes, 4 * total * kvh * g * d, q.dtype)
-    o, _, l = flash_decode_fwd(q, kc, vc, lengths)
-    ro, _, rl = flash_decode_fwd_plain(q, kc, vc, lengths)
-    err = (o / l[..., None].clamp_min(1e-30)
-           - ro / rl[..., None].clamp_min(1e-30)).abs().max().item()
-    return {"max_abs_err": err,
+    return {"max_abs_err": check_decode(q, kc, vc, lengths, what)[0],
             **times(lambda: flash_decode_fwd(q, kc, vc, lengths),
                     lambda: flash_decode_fwd_plain(q, kc, vc, lengths),
                     _decode_library(q, kc, vc, lengths)),
             "bound_ms": t_bound, "bound_by": by}
 
 
-def phase_flash_decode(main_lengths) -> dict:
-    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
-                                                  flash_decode_fwd_plain)
+def phase_flash_decode(main_lengths, cache_len: int) -> tuple:
+    """Checks the kernel on an edge-case cache of 1024 (G 1 and 4) and at
+    the serving path's shapes: the fused step's 8 slots at
+    ``main_lengths`` and a prompt's replay, one slot, both over
+    ``cache_len``; times it at 1024 and on the fused step."""
     lengths = [0, 1, 127, 128, 1000, 1024, 600, 5]
+    cases = [(8, 1024, g, lengths) for g in (1, 4)] + [
+        (8, cache_len, 1, main_lengths), (1, cache_len, 1, [cache_len - 149])]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for g in (1, 4):
-            q, kc, vc, ln = _decode_inputs(8, 1024, g, dtype, lengths, g)
-            o, m, l = flash_decode_fwd(q, kc, vc, ln)
-            ro, rm, rl = flash_decode_fwd_plain(q, kc, vc, ln)
-            torch.cuda.synchronize()
-            norm_err = (o / l[..., None].clamp_min(1e-30)
-                        - ro / rl[..., None].clamp_min(1e-30)).abs().max()
-            rel = lambda a, r: ((a - r).abs() / r.abs().clamp_min(1.0)).max()
-            e = [norm_err.item(), rel(o, ro).item(),
-                 (m - rm).abs().max().item(), rel(l, rl).item()]
-            check(all(x <= 2e-5 for x in e), f"fd g={g} {dtype}: {e}")
-            check(bool((m[0] == -1e30).all() and (l[0] == 0).all()
-                       and (o[0] == 0).all()), "fd empty slot")
-            errs[f"{str(dtype)[6:]}_g{g}"] = e
+        for i, (b, s, g, ln) in enumerate(cases):
+            key = f"{str(dtype)[6:]}_{b}x{s}_g{g}"
+            errs[key] = check_decode(*_decode_inputs(b, s, g, dtype, ln, i),
+                                     key)
     timing = {}
     for dtype in (torch.float32, torch.bfloat16):
-        timing[f"{str(dtype)[6:]}_8x1024"] = time_decode(
-            *_decode_inputs(8, 1024, 1, dtype, lengths, 3))
+        key = f"{str(dtype)[6:]}_8x1024"
+        timing[key] = time_decode(
+            *_decode_inputs(8, 1024, 1, dtype, lengths, 3), key)
     timing["float32_main"] = time_decode(*_decode_inputs(
-        8, 576, 1, torch.float32, main_lengths, 4))
+        8, cache_len, 1, torch.float32, main_lengths, 4), "float32_main")
     emit("flash_decode_fwd", max_err=errs, timing=timing)
-    return timing
+    return timing, {(b, s) for b, s, g, _ in cases if g == 1}
 
 
 def _serve(**kw):
     from repro_torch.launch.serve import serve_engine
     return serve_engine("gpt2-117m", use_reduced=False, n_slots=8,
-                        prompt_len=512, gen_tokens=64, n_requests=16,
+                        prompt_len=PROMPT_LEN, gen_tokens=GEN, n_requests=16,
                         quiet=True, device="cuda", seed=SEED, **kw)
 
 
-def phase_engine(dev: dict) -> dict:
+def phase_engine(dev: dict, fa_checked: set, fd_checked: set) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.flash_decode import flash_decode_fwd
     from repro_torch.serve import prefill_split
@@ -296,9 +318,21 @@ def phase_engine(dev: dict) -> dict:
     check(all(r.n_generated == req.max_tokens and r.finish_reason == "length"
               for r, req in zip(out["results"], out["requests"])),
           "every request generated its budget")
+    # every shape the path gave a kernel was held against its plain version
+    # (one request per prefill call; fused steps over all slots, replay
+    # over one row, both at the slot cache's length)
+    prefills = {(1, prefill_split(len(r.tokens), ladder))
+                for r in out["requests"]}
+    decodes = {(eng.cfg.n_slots, eng.cfg.cache_len)} | (
+        {(1, eng.cfg.cache_len)} if replay else set())
+    check(prefills <= fa_checked, f"prefill shapes {prefills} not all "
+                                  f"checked in {fa_checked}")
+    check(decodes <= fd_checked, f"decode shapes {decodes} not all "
+                                 f"checked in {fd_checked}")
     # a separate traced run gives the device's busy time; the untraced
     # run's wall time is the base of the idle share (tracing slows the host)
     busy, names = device_profile(_serve)
+    check(busy > 0, "the profiler recorded no device time in the engine")
     wall = out["wall_s"] * 1e3
     top = {k[:60]: v for k, v in sorted(names.items(),
                                         key=lambda kv: -kv[1])[:6]}
@@ -310,8 +344,7 @@ def phase_engine(dev: dict) -> dict:
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          wall_ms=wall,
          traced_run={"device_busy_ms": busy,
-                     "device_idle_share": (1 - busy / wall if busy
-                                           else "not measured"),
+                     "device_idle_share": 1 - busy / wall,
                      "top_kernels_ms": top})
     return {"out": out, "launches": {"flash_attention_fwd": fa,
                                      "flash_decode_fwd": fd}}
@@ -351,14 +384,15 @@ def phase_parity(engine_out) -> None:
 def main() -> int:
     dev = phase_device()
     phase_build()
-    fa_timing = phase_flash_attention()
+    fa_timing, fa_checked = phase_flash_attention()
     from repro_torch.launch.serve import make_requests
     from repro_torch.configs import get_arch
-    # main-path decode lengths: the first 8 requests mid-generation
+    # main-path decode lengths: the first 8 requests mid-generation, in the
+    # slot cache of prompt_len + gen_tokens that _serve gives the engine
     main_lengths = [len(r.tokens) + r.max_tokens // 2 for r in make_requests(
-        get_arch("gpt2-117m"), 8, 512, 64, seed=SEED)]
-    fd_timing = phase_flash_decode(main_lengths)
-    engine = phase_engine(dev)
+        get_arch("gpt2-117m"), 8, PROMPT_LEN, GEN, seed=SEED)]
+    fd_timing, fd_checked = phase_flash_decode(main_lengths, PROMPT_LEN + GEN)
+    engine = phase_engine(dev, fa_checked, fd_checked)
     phase_parity(engine)
     src = "src/repro_torch/kernels/csrc/"
     rows = [("flash_attention_fwd", src + "flash_attention_fwd.cu",

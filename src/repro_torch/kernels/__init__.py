@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/kernels/__init__.py:31-70``, rewritten for devices.
 Each subpackage has ``kernel.py`` (the ctypes wrapper of a CUDA kernel in
-``csrc/``, its plain PyTorch version beside it and a ``launches`` count),
-``ops.py`` (the model-layout wrapper) and ``ref.py`` (the plain oracle).
+``csrc/``, its plain PyTorch version beside it and a ``launches`` count)
+and ``ops.py`` (the model-layout wrapper).
 
 * ``flash_attention`` — causal prefill attention (``csrc/flash_attention_fwd.cu``).
 * ``flash_decode`` — split-KV single-token decode (``csrc/flash_decode.cu``).

@@ -22,7 +22,6 @@ from repro_torch.configs import get_arch, reduced as reduce_cfg
 from repro_torch.data import SyntheticCorpus
 from repro_torch.serve import (InferenceEngine, Request, SamplingParams,
                                SchedulerConfig)
-from repro_torch.serve.policies import POLICIES
 
 
 def make_requests(cfg, n_requests: int, prompt_len: int, gen_tokens: int,
@@ -51,8 +50,7 @@ def serve_engine(arch: str, use_reduced: bool, n_slots: int, prompt_len: int,
                  sampling: SamplingParams = SamplingParams(),
                  sched: SchedulerConfig = None, prefill_batch: int = 1,
                  decode_backend: str = "", attn_backend: str = "",
-                 policy: str = "fcfs", quiet: bool = False,
-                 device: str = "cuda"):
+                 quiet: bool = False, device: str = "cuda"):
     """Continuous-batching serve over random weights from ``seed``."""
     mcfg = get_arch(arch)
     cfg = reduce_cfg(mcfg) if use_reduced else mcfg
@@ -62,7 +60,7 @@ def serve_engine(arch: str, use_reduced: bool, n_slots: int, prompt_len: int,
         n_slots=n_slots, cache_len=cache_len,
         min_prompt_bucket=min(16, max(prompt_len // 4, 1)),
         round_multiple=max(prompt_len // 4, 8),
-        prefill_batch=prefill_batch, policy=policy)
+        prefill_batch=prefill_batch)
     engine = InferenceEngine.from_arch(
         arch, use_reduced=use_reduced, seed=seed, cfg=sched,
         decode_backend=decode_backend or None,
@@ -118,7 +116,6 @@ def main(argv=None) -> int:
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
-    p.add_argument("--policy", default="fcfs", choices=list(POLICIES))
     args = p.parse_args(argv)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, seed=args.seed)
@@ -128,8 +125,7 @@ def main(argv=None) -> int:
                  ragged=not args.uniform, sampling=sp,
                  prefill_batch=args.prefill_batch,
                  decode_backend=args.decode_backend,
-                 attn_backend=args.attn_backend, policy=args.policy,
-                 device=args.device)
+                 attn_backend=args.attn_backend, device=args.device)
     return 0
 
 

@@ -24,12 +24,10 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_fwd,
                                                  flash_attention_fwd_plain)
-from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_fwd,
                                               flash_decode_fwd_plain,
                                               flash_decode_partials)
-from repro_torch.kernels.flash_decode.ref import decode_partials_reference
 
 TOL = 1e-5  # fp32 max abs error, see the module docstring
 
@@ -40,12 +38,16 @@ def jx():
     jnp = pytest.importorskip("jax.numpy")
     from repro.kernels.flash_attention.kernel import flash_attention_fwd
     from repro.kernels.flash_attention.ops import flash_attention
+    from repro.kernels.flash_attention.ref import attention_reference
     from repro.kernels.flash_decode.ops import (flash_decode,
                                                 flash_decode_partials)
+    from repro.kernels.flash_decode.ref import decode_partials_reference
     return types.SimpleNamespace(
         jnp=jnp, flash_attention_fwd=flash_attention_fwd,
         flash_attention=flash_attention, flash_decode=flash_decode,
-        flash_decode_partials=flash_decode_partials)
+        flash_decode_partials=flash_decode_partials,
+        attention_reference=attention_reference,
+        decode_partials_reference=decode_partials_reference)
 
 
 def _randn(rng, *shape):
@@ -83,11 +85,12 @@ def test_flash_attention_gqa_matches_jax(jx, s, g):
     _close(out, ref)
 
 
-def test_flash_attention_plain_masks_valid_len_and_agrees_with_oracle():
+def test_flash_attention_plain_masks_valid_len_and_agrees_with_oracle(jx):
     rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(_randn(rng, 2, 37, 16)) for _ in range(3))
-    o, _ = flash_attention_fwd_plain(q, k, v)
-    _close(o, attention_reference(q, k, v).numpy())
+    q, k, v = (_randn(rng, 2, 37, 16) for _ in range(3))
+    o, _ = flash_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)))
+    _close(o, jx.attention_reference(*map(jx.jnp.asarray, (q, k, v))))
+    q, k, v = map(torch.from_numpy, (q, k, v))
     # keys at or past valid_len never contribute (non-causal case)
     o_vl, _ = flash_attention_fwd_plain(q, k, v, causal=False, valid_len=20)
     p = torch.softmax(q @ k[:, :20].transpose(1, 2) / 4.0, dim=-1)
@@ -121,17 +124,18 @@ def test_flash_decode_matches_jax(jx, g):
     assert (np.asarray(jm)[0] == -1e30).all()
 
 
-def test_flash_decode_plain_agrees_with_oracle_on_strided_cache():
+def test_flash_decode_plain_agrees_with_oracle_on_strided_cache(jx):
     q, kc, vc, lengths = _decode_inputs(7, 2)
     b, h, d = q.shape
     stacked = torch.from_numpy(np.stack([kc, vc]))  # (2, B, S, KV, D)
     tq, tl = torch.from_numpy(q), torch.from_numpy(lengths)
     o, m, l = flash_decode_fwd(tq.reshape(b, 2, h // 2, d), stacked[0],
                                stacked[1], tl)
-    ro, rm, rl = decode_partials_reference(tq, stacked[0], stacked[1], tl)
-    _close(o, ro.numpy())
-    _close(m, rm.numpy())
-    _close(l, rl.numpy())
+    ro, rm, rl = jx.decode_partials_reference(
+        *map(jx.jnp.asarray, (q, kc, vc, lengths)))
+    _close(o, ro)
+    _close(m, rm)
+    _close(l, rl)
 
 
 # ---------------------------------------------------------------------------
