@@ -17,6 +17,7 @@ JAX package ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -62,34 +63,72 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn):
+def device_profile(fn, attempts: int = 3):
     """(device ms, {kernel name: device ms}) of the kernels ``fn`` runs,
-    from a CUDA-only ``torch.profiler`` trace."""
+    from a CUDA-only ``torch.profiler`` trace.  CUPTI now and then hands
+    back a trace with no device activity at all; such a trace is taken
+    again, and the run fails after ``attempts`` empty ones."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {e.key: e.self_device_time_total / 1e3
-             for e in prof.key_averages() if e.self_device_time_total > 0}
-    return sum(names.values()), names
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.self_device_time_total / 1e3
+                 for e in prof.key_averages() if e.self_device_time_total > 0}
+        if names:
+            return sum(names.values()), names
+    raise RuntimeError(f"check failed: the profiler recorded no device time "
+                       f"in {attempts} traces")
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one call: the kernels' time summed over ``iters``
-    calls, over ``iters``.  Fails where the profiler saw no device time."""
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per ms of event time."""
+    torch.cuda._sleep(1000)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    return 1e7 / start.elapsed_time(end)
+
+
+def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
+    """Device time of one call: CUDA-event time of ``iters`` back-to-back
+    calls, over ``iters``.  The calls are queued behind a spin kernel that
+    lasts longer than the host takes to issue them, so the card runs them
+    without waiting for the host; the run fails if the card still caught up
+    with the host (the start event done before the last call was issued)."""
     fn()
     torch.cuda.synchronize()
-    total, _ = device_profile(lambda: [fn() for _ in range(iters)])
-    check(total > 0, "the profiler recorded no device time")
-    return total / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for attempt in range(attempts):
+        torch.cuda._sleep(int((3 * issue_ms + 20) * 4 ** attempt
+                              * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+    raise RuntimeError(f"check failed: the card caught up with the host in "
+                       f"{attempts} timed runs")
 
 
 def times(kernel, plain, library) -> dict:
     """``ms``, ``plain_ms``, ``library_ms``: device ms of one call of the
-    kernel, its plain version and the library call, from the profiler.
-    ``*call_ms``: CUDA-event ms per call of each, which the host's rate of
-    submission bounds where it is slower than the card."""
-    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+    kernel, its plain version and the library call (:func:`device_ms`).
+    ``*call_ms``: CUDA-event ms per call of each with nothing queued ahead,
+    which the host's rate of issue bounds where it is slower than the
+    card."""
+    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain, 10),
             "library_ms": device_ms(library), "call_ms": call_ms(kernel),
             "plain_call_ms": call_ms(plain, 10),
             "library_call_ms": call_ms(library)}
@@ -332,7 +371,6 @@ def phase_engine(dev: dict, fa_checked: set, fd_checked: set) -> dict:
     # a separate traced run gives the device's busy time; the untraced
     # run's wall time is the base of the idle share (tracing slows the host)
     busy, names = device_profile(_serve)
-    check(busy > 0, "the profiler recorded no device time in the engine")
     wall = out["wall_s"] * 1e3
     top = {k[:60]: v for k, v in sorted(names.items(),
                                         key=lambda kv: -kv[1])[:6]}
