@@ -4,11 +4,20 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from this
-checkout, holds each against its plain PyTorch version, serves
-full-width GPT-2 117M (random weights from a seed) through
-``repro_torch.launch.serve.serve_engine``, checks that the serving path
-launched both kernels the expected number of times, and checks its greedy
-token streams against the plain (no custom kernel) path on the same card.
+checkout and holds each against its plain PyTorch version, then drives
+the port's two paths at full width with random weights from a seed:
+
+* serving: GPT-2 117M through ``repro_torch.launch.serve.serve_engine``,
+  checking that it launched the forward flash-attention and flash-decode
+  kernels the expected number of times and that its greedy token streams
+  equal the plain (no custom kernel) path's on the same card;
+* training: GPT-2 117M for 30 steps of sequence-length warmup through
+  ``repro_torch.launch.train.Trainer``, checking finite losses, the plans
+  of ``predict_trajectory``, the launch counts of the forward and the three
+  backward flash-attention kernels, every gradient leaf of two batches and
+  the first 8 steps against the same run with plain attention on the same
+  card.
+
 Phases print one line each.  The second-to-last line lists each kernel
 with its error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
@@ -19,11 +28,13 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +47,19 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 H, D = 12, 64  # gpt2-117m heads and head dim
 PROMPT_LEN, GEN = 512, 64  # the served requests' longest prompt and budget
 SEED = 0
+# the training run: gpt2-117m, global batch 16 of sequences of 1024, SLW
+# linear from 8 over 20 steps, batch warmup from 8, 30 steps, one eval
+B_TRAIN, S_TRAIN, TRAIN_STEPS, EVAL_BATCH = 16, 1024, 30, 8
+PARITY_STEPS = 8
+# the training run and its plain-attention twin agree on losses and Adam
+# variance maxima within this relative error (fixed before the first run:
+# fp32 on both sides, sums in another order, 8 small Adam steps)
+PARITY_RTOL = 1e-4
+# the flash run's and the plain-attention run's gradients of one batch from
+# the same params, leaf by leaf: each within GRAD_RTOL x max |plain leaf|
+# (fixed before the first run: fp32, 12 layers, sums in another order; a
+# zeroed or mis-scaled dQ or dK/dV is off by the whole leaf)
+GRAD_RTOL = 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -122,16 +146,18 @@ def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
                        f"{attempts} timed runs")
 
 
-def times(kernel, plain, library) -> dict:
+def times(kernel, plain, library=None) -> dict:
     """``ms``, ``plain_ms``, ``library_ms``: device ms of one call of the
-    kernel, its plain version and the library call (:func:`device_ms`).
+    kernel, its plain version and the library call (:func:`device_ms`;
+    None where no one PyTorch call computes the same function).
     ``*call_ms``: CUDA-event ms per call of each with nothing queued ahead,
     which the host's rate of issue bounds where it is slower than the
     card."""
+    lib = library is not None
     return {"ms": device_ms(kernel), "plain_ms": device_ms(plain, 10),
-            "library_ms": device_ms(library), "call_ms": call_ms(kernel),
-            "plain_call_ms": call_ms(plain, 10),
-            "library_call_ms": call_ms(library)}
+            "library_ms": device_ms(library) if lib else None,
+            "call_ms": call_ms(kernel), "plain_call_ms": call_ms(plain, 10),
+            "library_call_ms": call_ms(library) if lib else None}
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -419,6 +445,306 @@ def phase_parity(engine_out) -> None:
          near_tie_gaps=gaps)
 
 
+def check_attention_bwd(q, k, v, o, lse, do, what: str) -> list:
+    """[dq, dk, dv max abs err] of the three backward kernels against their
+    plain versions on the same inputs.  fp32: each within 1e-4 x max |plain|
+    (another summation order over up to 1024 keys) plus 1e-5 absolute for
+    entries that cancel to 0 (at S = 1, dq is 0 in exact arithmetic).  bf16
+    outputs: that plus 2 bf16 ulps at the value, since both sides compute
+    in fp32 and round once to bf16."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err = (a.float() - r.float()).abs()
+        tol = 1e-4 * r.float().abs().max().item() + 1e-5
+        if q.dtype == torch.bfloat16:
+            tol = tol + bf16_tolerance(a, r) - 2e-5
+        check(bool((err <= tol).all()), f"fa bwd {name} {what}: "
+                                        f"{err.max().item()}")
+        errs.append(err.max().item())
+    return errs
+
+
+def train_config(attn_backend: str = "flash"):
+    from repro_torch.configs import (BatchWarmupConfig, OptimizerConfig,
+                                     SLWConfig, TrainConfig, get_arch)
+    tokens = TRAIN_STEPS * B_TRAIN * S_TRAIN
+    return TrainConfig(
+        model=get_arch("gpt2-117m").replace(attn_backend=attn_backend),
+        optimizer=OptimizerConfig(
+            lr=6e-4, schedule="token_cosine", warmup_steps=10,
+            warmup_tokens=10 * B_TRAIN * S_TRAIN, total_steps=TRAIN_STEPS,
+            total_tokens=tokens),
+        slw=SLWConfig(enabled=True, pacing="linear", start_seq_len=8,
+                      duration_steps=20, round_multiple=8, max_buckets=12),
+        batch_warmup=BatchWarmupConfig(enabled=True, start_batch=8,
+                                       warmup_tokens=tokens // 20),
+        seq_len=S_TRAIN, global_batch=B_TRAIN, seed=SEED, remat="none",
+        eval_interval=TRAIN_STEPS)
+
+
+def _causal_pairs(bh: int, s: int) -> int:
+    return bh * s * (s + 1) // 2
+
+
+def _bwd_bounds(bh: int, s: int) -> dict:
+    """(least ms, what bounds it) of each backward kernel and of all three,
+    fp32, causal over the whole length: each input read once and each
+    output written once; 2 D operations per (query, key) pair below the
+    diagonal for each product a kernel does (dQ kernel: S, dP, dQ; dK/dV
+    kernel: S, dP, dV, dK; five distinct)."""
+    row, tile = bh * s * 4, bh * s * D * 4
+    pair_ops = 2 * D * _causal_pairs(bh, s)
+    f32 = torch.float32
+    return {"preprocess": bound(2 * tile + row, 2 * bh * s * D, f32),
+            "dq": bound(5 * tile + 2 * row, 3 * pair_ops, f32),
+            "dkv": bound(6 * tile + 2 * row, 4 * pair_ops, f32),
+            "all": bound(8 * tile + row, 5 * pair_ops + 2 * bh * s * D, f32)}
+
+
+def phase_flash_attention_bwd(shapes) -> tuple:
+    """Holds the forward and the three backward kernels against their plain
+    versions at every (B, S) of ``shapes`` (the training run's, at H = 12)
+    in fp32, plus ragged S = 1 and 427 in fp32 and bf16; times them at
+    (16, 1024) fp32."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain, flash_attention_bwd_plain,
+        flash_attention_bwd_preprocess,
+        flash_attention_bwd_preprocess_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    cases = [(torch.float32, b, s) for b, s in sorted(shapes)] + [
+        (dt, 4, s) for dt in (torch.float32, torch.bfloat16) for s in (1, 427)]
+    errs = {}
+    for i, (dtype, b, s) in enumerate(cases):
+        key = f"{str(dtype)[6:]}_{b}x{s}"
+        q, k, v = _attn_inputs(b, s, dtype, 1000 + i)
+        do = _attn_inputs(b, s, dtype, 2000 + i)[0]
+        check_attention(q, k, v, key)
+        o, lse = flash_attention_fwd(q, k, v)
+        errs[key] = check_attention_bwd(q, k, v, o, lse, do, key)
+
+    bh, s = B_TRAIN * H, S_TRAIN
+    q, k, v = _attn_inputs(B_TRAIN, s, torch.float32, 1)
+    do = _attn_inputs(B_TRAIN, s, torch.float32, 2)[0]
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = flash_attention_bwd_preprocess(o, do)
+    err = dict(zip(("dq", "dk", "dv"),
+                   check_attention_bwd(q, k, v, o, lse, do, "timed")))
+    bounds = _bwd_bounds(bh, s)
+    q4, k4, v4 = (t.reshape(B_TRAIN, H, s, D).clone().requires_grad_()
+                  for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(B_TRAIN, H, s, D)
+    sdpa_bwd = lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                           retain_graph=True)
+    rest = (do, lse, delta)
+    timing = {
+        "preprocess": {
+            "max_abs_err": (delta - flash_attention_bwd_preprocess_plain(
+                o, do)).abs().max().item(),
+            **times(lambda: flash_attention_bwd_preprocess(o, do),
+                    lambda: flash_attention_bwd_preprocess_plain(o, do),
+                    lambda: torch.linalg.vecdot(o, do))},
+        "dq": {"max_abs_err": err["dq"],
+               **times(lambda: flash_attention_bwd_dq(q, k, v, *rest),
+                       lambda: flash_attention_bwd_dq_plain(q, k, v, *rest))},
+        "dkv": {"max_abs_err": max(err["dk"], err["dv"]),
+                **times(lambda: flash_attention_bwd_dkv(q, k, v, *rest),
+                        lambda: flash_attention_bwd_dkv_plain(q, k, v,
+                                                              *rest))},
+        "all": {"max_abs_err": max(err.values()),
+                **times(lambda: flash_attention_bwd(q, k, v, o, lse, do),
+                        lambda: flash_attention_bwd_plain(q, k, v, o, lse,
+                                                          do), sdpa_bwd)},
+        "fwd": {"max_abs_err": check_attention(q, k, v, "timed fwd")[0],
+                **times(lambda: flash_attention_fwd(q, k, v),
+                        lambda: flash_attention_fwd_plain(q, k, v),
+                        lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, is_causal=True))},
+    }
+    check(timing["preprocess"]["max_abs_err"] <= 1e-4, "fa bwd delta")
+    # SDPA's backward is one call for all three kernels: the dQ and dK/dV
+    # entries carry its time, marked as covering the whole backward
+    for name in ("dq", "dkv"):
+        timing[name].update(library_ms=timing["all"]["library_ms"],
+                            library_call_ms=timing["all"]["library_call_ms"],
+                            library_covers="all three backward kernels")
+    for name, (t_bound, by) in bounds.items():
+        timing[name].update(bound_ms=t_bound, bound_by=by)
+    fwd_bytes = 4 * bh * s * D * 4 + bh * s * 4
+    timing["fwd"].update(zip(("bound_ms", "bound_by"), bound(
+        fwd_bytes, 4 * D * _causal_pairs(bh, s), torch.float32)))
+    emit("flash_attention_bwd", max_err=errs, timing=timing,
+         shape=f"B={B_TRAIN} H={H} S={s} D={D} float32")
+    return timing, {(b, s) for dt, b, s in cases if dt == torch.float32}
+
+
+def _fa_kernels():
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_preprocess, flash_attention_fwd)
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd_preprocess": flash_attention_bwd_preprocess,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+
+
+def _clone_state(state):
+    from repro_torch.optim.transforms import tree_map
+    return tree_map(lambda t: t.detach().clone(), state)
+
+
+def phase_train(dev: dict, checked: set) -> dict:
+    """Trains full-width gpt2-117m (random weights from SEED) through the
+    Trainer: 30 SLW steps and one full-length eval, then 3 more
+    full-length steps untraced and 3 under the profiler."""
+    from repro_torch.core.regulators import predict_trajectory
+    from repro_torch.launch.train import Trainer
+    tc = train_config()
+    trainer = Trainer(tc, eval_batch=EVAL_BATCH, device="cuda")
+    init = _clone_state(trainer.state)
+    kernels = _fa_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.run()
+    launches = {name: f.launches for name, f in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = tc.model.n_layers
+
+    check(res.steps == TRAIN_STEPS and not res.diverged, "trained 30 steps")
+    check(all(math.isfinite(x) for x in res.loss_history), "finite losses")
+    plans = [(p.seq_len, p.batch_size, p.lr)
+             for p in predict_trajectory(tc, TRAIN_STEPS)]
+    ran = list(zip(res.seqlen_history, res.batch_history, res.lr_history))
+    check(ran == plans, "the executed plans are predict_trajectory's")
+    n_evals = len(res.val_ppl_history)
+    check(n_evals == 1, f"{n_evals} evals")
+    want = {name: n_layers * TRAIN_STEPS for name in kernels}
+    want["flash_attention_fwd"] += n_layers * n_evals
+    check(launches == want, f"launches {launches} != {want}")
+    shapes = {(b, s) for s, b, _ in plans} | {(EVAL_BATCH, S_TRAIN)}
+    check(shapes <= checked, f"shapes {shapes - checked} not checked")
+
+    full = [i for i, s in enumerate(res.seqlen_history) if s == S_TRAIN]
+    durations = trainer.watchdog.durations
+    check(len(durations) == TRAIN_STEPS, "one duration per step")
+    full_s = [durations[i] for i in full]
+    full_tokens = sum(res.batch_history[i] * S_TRAIN for i in full)
+
+    def steps3():
+        for _ in range(3):
+            trainer.run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps3()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps3)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:8]}
+    emit("train", card=dev["nvidia_smi"], steps=res.steps,
+         tokens=res.tokens, full_length_steps=len(full),
+         tokens_per_s_full_length=full_tokens / sum(full_s),
+         p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
+         first_loss=res.loss_history[0], last_loss=res.loss_history[-1],
+         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         launches=launches, max_memory_allocated=peak,
+         wall_s=res.wall_time_s,
+         traced_3_full_steps={"wall_ms_untraced": wall,
+                              "device_busy_ms": busy,
+                              "device_idle_share": 1 - busy / wall,
+                              "top_kernels_ms": top})
+    return {"init": init, "result": res, "launches": launches}
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Names of the leaves of a param tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in _leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _grads(model, params, batch) -> list:
+    from repro_torch.optim.transforms import tree_leaves, tree_unflatten
+    leaves = [t.detach().clone().requires_grad_()
+              for t in tree_leaves(params)]
+    loss, _ = model.loss(tree_unflatten(params, leaves), batch)
+    return list(torch.autograd.grad(loss, leaves))
+
+
+def compare_grads(flash_model, plain_model, params, batch) -> dict:
+    """Every gradient leaf of the flash model against the plain model's on
+    the same params and batch: {leaf name: max abs err / max |plain|}.
+    Fails if a leaf is off by more than GRAD_RTOL of its largest entry, or
+    if an attention projection gets no gradient."""
+    got = _grads(flash_model, params, batch)
+    ref = _grads(plain_model, params, batch)
+    rel = {}
+    for name, a, r in zip(_leaf_names(params), got, ref):
+        scale = r.abs().max().item()
+        if ".attn." in name:
+            check(scale > 0, f"no gradient reaches {name}")
+        rel[name] = (a - r).abs().max().item() / scale
+        check(rel[name] <= GRAD_RTOL, f"gradient {name}: {rel[name]}")
+    return rel
+
+
+def phase_train_parity(train: dict) -> None:
+    """The same config with plain blockwise attention, from the same
+    initial state: the gradients of the first step's batch and of a
+    full-length batch leaf by leaf, then the first PARITY_STEPS steps, on
+    the same card."""
+    from repro_torch.core.regulators import predict_trajectory
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import model_zoo
+    tc = train_config("blockwise")
+    trainer = Trainer(tc, eval_batch=EVAL_BATCH, device="cuda")
+    trainer.state = train["init"]
+    kernels = _fa_kernels()
+    flash_model = model_zoo.build_model(train_config().model, remat=tc.remat)
+    plans = predict_trajectory(tc, TRAIN_STEPS)
+    grads = {}
+    for i in (0, TRAIN_STEPS - 1):
+        batch, _ = trainer.stack.apply(trainer.pipeline.batch_at(i), plans[i])
+        rel = compare_grads(flash_model, trainer.model,
+                            train["init"]["params"], trainer.to_device(batch))
+        attn = {kind: max(v for k, v in rel.items() if k.endswith(kind))
+                for kind in ("wq", "wk", "wv", "wo")}
+        grads[f"{plans[i].batch_size}x{plans[i].seq_len}"] = {
+            "max_rel_err": max(rel.values()),
+            "worst_leaf": max(rel, key=rel.get), "attn_max_rel_err": attn}
+        torch.cuda.empty_cache()
+    emit("train_grads", leaves=len(rel), rtol=GRAD_RTOL, batches=grads)
+    before = {name: f.launches for name, f in kernels.items()}
+    plain = trainer.run(max_steps=PARITY_STEPS)
+    check({name: f.launches for name, f in kernels.items()} == before,
+          "the blockwise run launched a flash-attention kernel")
+    ref = train["result"]
+    n = PARITY_STEPS
+    check(plain.seqlen_history == ref.seqlen_history[:n]
+          and plain.batch_history == ref.batch_history[:n]
+          and plain.lr_history == ref.lr_history[:n], "parity plans")
+    rel = {}
+    for key in ("loss_history", "var_max_history"):
+        a = np.asarray(getattr(ref, key)[:n])
+        b = np.asarray(getattr(plain, key))
+        rel[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        check(rel[key] <= PARITY_RTOL, f"parity {key}: {rel[key]}")
+    emit("train_parity", steps=n, max_rel_err=rel, rtol=PARITY_RTOL,
+         seqlens=plain.seqlen_history, batches=plain.batch_history)
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -432,17 +758,38 @@ def main() -> int:
     fd_timing, fd_checked = phase_flash_decode(main_lengths, PROMPT_LEN + GEN)
     engine = phase_engine(dev, fa_checked, fd_checked)
     phase_parity(engine)
+    serve_launches = engine["launches"]
+    del engine
+    torch.cuda.empty_cache()
+
+    from repro_torch.core.regulators import predict_trajectory
+    train_shapes = {(p.batch_size, p.seq_len) for p in predict_trajectory(
+        train_config(), TRAIN_STEPS)} | {(EVAL_BATCH, S_TRAIN)}
+    bwd_timing, bwd_checked = phase_flash_attention_bwd(train_shapes)
+    train = phase_train(dev, bwd_checked)
+    phase_train_parity(train)
+
     src = "src/repro_torch/kernels/csrc/"
-    rows = [("flash_attention_fwd", src + "flash_attention_fwd.cu",
-             "src/repro/kernels/flash_attention/kernel.py:168",
-             fa_timing["float32_1x512"]),
-            ("flash_decode_fwd", src + "flash_decode.cu",
-             "src/repro/kernels/flash_decode/kernel.py:109",
-             fd_timing["float32_main"])]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": rep,
-         "launches": engine["launches"][name], **t}
-        for name, source, rep, t in rows]}), flush=True)
+    ref = "src/repro/kernels/"
+    by_path = {"serve": serve_launches, "train": train["launches"]}
+    rows = [("flash_attention_fwd", "flash_attention_fwd.cu",
+             "flash_attention/kernel.py:168", fa_timing["float32_1x512"]),
+            ("flash_attention_bwd_preprocess", "flash_attention_bwd.cu",
+             "flash_attention/kernel.py:310", bwd_timing["preprocess"]),
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+             "flash_attention/kernel.py:326", bwd_timing["dq"]),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+             "flash_attention/kernel.py:348", bwd_timing["dkv"]),
+            ("flash_decode_fwd", "flash_decode.cu",
+             "flash_decode/kernel.py:109", fd_timing["float32_main"])]
+    entries = []
+    for name, source, rep, t in rows:
+        counts = {path: c[name] for path, c in by_path.items() if name in c}
+        entries.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": ref + rep,
+                        "launches": sum(counts.values()),
+                        "launches_by_path": counts, **t})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}))

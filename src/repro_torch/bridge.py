@@ -1,10 +1,11 @@
-"""Parameters of the JAX package -> parameters of the port.
+"""Parameters and train state of the JAX package -> those of the port.
 
 The JAX model's parameters, taken to the host as a nested dict of numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``), become the port's
 tree: the same keys, ``layers/*`` unstacked along axis 0 into a list of
 per-layer dicts, every shape checked against the port's ``ParamDef``s.
-Nothing here imports JAX.
+A train state ``{"params", "opt", "step"}`` maps the same way, the chain
+state leaf for leaf.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.models import model_zoo
+from repro_torch.optim.transforms import build_optimizer
 from repro_torch.models.layers import ParamDef
 
 
@@ -50,3 +52,39 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
                               device)
                      for i, layer_defs in enumerate(defs["layers"])]
     return out
+
+
+def _scalar(x: Any, path: str, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.shape != ():
+        raise ValueError(f"{path}: shape {arr.shape} != ()")
+    return torch.tensor(int(arr), dtype=torch.int32, device=device)
+
+
+def train_state_from_numpy(tree: Any, cfg: ModelConfig,
+                           opt_cfg: OptimizerConfig,
+                           device: torch.device) -> Any:
+    """The port's train state from the reference's, on the host
+    (``jax.tree_util.tree_map(np.asarray, state)``): params as
+    :func:`params_from_numpy`; the default chain's state with ``adam.m`` and
+    ``adam.v`` shaped like the params, ``adam.count`` and ``step`` int32;
+    the stateless transforms' empty dicts."""
+    names = sorted(build_optimizer(opt_cfg).init({"w": torch.zeros(1)}))
+    opt = tree["opt"]
+    if sorted(opt) != names:
+        raise ValueError(f"/opt: keys {sorted(opt)} != port's {names}")
+    for name in names:
+        if name != "adam" and len(opt[name]):
+            raise ValueError(f"/opt/{name}: want an empty state")
+    adam = opt["adam"]
+    if sorted(adam) != ["count", "m", "v"]:
+        raise ValueError(f"/opt/adam: keys {sorted(adam)} != "
+                         f"['count', 'm', 'v']")
+    port_opt = {name: {} for name in names}
+    port_opt["adam"] = {
+        "m": params_from_numpy(adam["m"], cfg, device),
+        "v": params_from_numpy(adam["v"], cfg, device),
+        "count": _scalar(adam["count"], "/opt/adam/count", device)}
+    return {"params": params_from_numpy(tree["params"], cfg, device),
+            "opt": port_opt,
+            "step": _scalar(tree["step"], "/step", device)}

@@ -1,6 +1,6 @@
 """Architecture registry of the port (``repro/configs/__init__.py``).
 
-Only the presets the port serves so far are registered: the dense GPT-2
+Only the presets the port runs so far are registered: the dense GPT-2
 117M and GPT-3 125M replicas.  ``reduced`` is ``configs/__init__.py:68-89``
 for the dense family.
 """
@@ -9,7 +9,9 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs import gpt2
-from repro_torch.configs.base import ModelConfig, SLWConfig
+from repro_torch.configs.base import (BatchWarmupConfig, ModelConfig,
+                                     OptimizerConfig, RegulatorSpec,
+                                     SLWConfig, TrainConfig)
 
 ARCHS: Dict[str, ModelConfig] = {
     "gpt2-117m": gpt2.GPT2_117M,
@@ -19,7 +21,7 @@ ARCHS: Dict[str, ModelConfig] = {
 
 def get_arch(name: str) -> ModelConfig:
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; the port serves "
+        raise KeyError(f"unknown arch {name!r}; the port runs "
                        f"{sorted(ARCHS)}")
     return ARCHS[name]
 
@@ -35,4 +37,5 @@ def reduced(model: ModelConfig) -> ModelConfig:
         head_dim=16, d_ff=96, vocab_size=512, max_seq_len=256)
 
 
-__all__ = ["ARCHS", "ModelConfig", "SLWConfig", "get_arch", "reduced"]
+__all__ = ["ARCHS", "BatchWarmupConfig", "ModelConfig", "OptimizerConfig",
+           "RegulatorSpec", "SLWConfig", "TrainConfig", "get_arch", "reduced"]

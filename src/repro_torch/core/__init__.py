@@ -1,1 +1,2 @@
-"""Pacing arithmetic the serving scheduler shares with training."""
+"""The SLW control plane: pacing, curriculum, batch warmup, stability
+telemetry and the regulator stack (``repro/core``)."""

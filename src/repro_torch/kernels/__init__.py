@@ -1,11 +1,13 @@
-"""Hand-written CUDA kernels for the serving path, with their plain versions.
+"""Hand-written CUDA kernels of the port, with their plain versions.
 
 Counterpart of ``repro/kernels/__init__.py:31-70``, rewritten for devices.
 Each subpackage has ``kernel.py`` (the ctypes wrapper of a CUDA kernel in
 ``csrc/``, its plain PyTorch version beside it and a ``launches`` count)
 and ``ops.py`` (the model-layout wrapper).
 
-* ``flash_attention`` — causal prefill attention (``csrc/flash_attention_fwd.cu``).
+* ``flash_attention`` — causal attention for training and prefill: forward
+  (``csrc/flash_attention_fwd.cu``) and the three backward kernels
+  (``csrc/flash_attention_bwd.cu``) behind a ``torch.autograd.Function``.
 * ``flash_decode`` — split-KV single-token decode (``csrc/flash_decode.cu``).
 
 The backend rule.  ``attn_backend`` is "blockwise" or "flash";

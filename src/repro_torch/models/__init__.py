@@ -1,1 +1,1 @@
-"""Dense LM of the serving slice."""
+"""Dense LM of the port: training loss, prefill and decode."""

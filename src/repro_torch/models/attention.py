@@ -1,9 +1,11 @@
-"""GQA attention: prefill through flash or blockwise, cached decode
+"""GQA attention: training and prefill through flash or blockwise, cached decode
 (``repro/models/attention.py:33-312``, dense and per-slot paths).
 
 Backends (see ``repro_torch.kernels``): ``attn_backend`` "flash" runs the
-CUDA flash-attention kernel on CUDA tensors, "blockwise" the plain online
-softmax scan; ``decode_backend`` "kernel" runs the CUDA split-KV decode
+CUDA flash-attention kernels on CUDA tensors, forward and backward, through
+the ``torch.autograd.Function`` of ``kernels.flash_attention.ops``;
+"blockwise" runs the plain online-softmax scan, which torch autograd
+differentiates; ``decode_backend`` "kernel" runs the CUDA split-KV decode
 kernel for single-token steps, "reference" the plain masked softmax over
 the whole cache.  On CPU tensors the kernel backends run the kernels'
 plain versions.  Rotary positions are not ported yet: the served presets

@@ -1,4 +1,4 @@
-"""Parameter declarations and common layers (``repro/models/layers.py:19-140, 173-226``).
+"""Parameter declarations and common layers (``repro/models/layers.py:19-140, 173-247``).
 
 A model is declared as a nested dict of :class:`ParamDef` leaves; the same
 tree gives materialized fp32 parameters (:func:`init_params`) and the
@@ -131,3 +131,23 @@ def advance_pos(pos: torch.Tensor, n: int,
     if active is not None:
         new = torch.where(active, new, pos)
     return new
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor], vocab_size: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean masked next-token loss in fp32 (``layers.py:229-247``).  Logit
+    columns of the padded vocab get -1e9, as in the reference.  Returns
+    (loss, number of counted tokens), both 0-dim."""
+    logits = logits.float()
+    padded = logits.shape[-1]
+    if padded != vocab_size:
+        iota = torch.arange(padded, device=logits.device)
+        logits = torch.where(iota < vocab_size, logits,
+                             torch.full((), -1e9, device=logits.device))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    total = mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / total, total

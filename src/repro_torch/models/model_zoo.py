@@ -18,9 +18,12 @@ def model_defs(cfg: ModelConfig):
     return dense_defs(cfg)
 
 
-def build_model(cfg: ModelConfig, block_kv: int = 512) -> DenseLM:
+def build_model(cfg: ModelConfig, block_kv: int = 512,
+                remat: str = "full") -> DenseLM:
+    """The model of ``cfg``; ``remat`` ("none" | "full") is the activation
+    checkpointing of ``DenseLM.loss``."""
     model_defs(cfg)  # validates the family
-    return DenseLM(cfg=cfg, block_kv=block_kv)
+    return DenseLM(cfg=cfg, block_kv=block_kv, remat=remat)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

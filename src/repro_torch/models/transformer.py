@@ -1,9 +1,13 @@
-"""Dense decoder-only LM, serving half (``repro/models/transformer.py:26-213``).
+"""Dense decoder-only LM: training loss, prefill and cached decode
+(``repro/models/transformer.py:26-213``).
 
 GPT-2 style when the config says so: learned positions, LayerNorm, GELU
 MLPs, tied embeddings, vocab padded to a multiple of 128.  A Python loop
 over the per-layer parameter list replaces ``lax.scan``.  The model runs in
-the dtype of the parameters it is given (the engine serves fp32).
+the dtype of the parameters it is given (the trainer and the engine run
+fp32).  ``remat="full"`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on the
+scan body); ``"none"`` keeps every activation.
 """
 from __future__ import annotations
 
@@ -12,11 +16,15 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (ParamDef, advance_pos, apply_norm,
-                                       mlp_apply, mlp_def, norm_def, round_up)
+                                       cross_entropy_loss, mlp_apply, mlp_def,
+                                       norm_def, round_up)
+
+REMATS = ("none", "full")
 
 
 def dense_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -64,10 +72,48 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
+def _block(lp, x: torch.Tensor, cfg: ModelConfig,
+           block_kv: int) -> torch.Tensor:
+    """One pre-norm block, the training forward (``transformer.py:72-83``)."""
+    h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+    a, _ = attn_mod.full_attention(lp["attn"], h, cfg, block_kv=block_kv)
+    x = x + a
+    h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
+
+
 @dataclass
 class DenseLM:
     cfg: ModelConfig
     block_kv: int = 512
+    remat: str = "full"
+
+    def __post_init__(self):
+        if self.remat == "dots":
+            raise NotImplementedError('remat="dots" is not ported yet')
+        if self.remat not in REMATS:
+            raise ValueError(f"unknown remat policy {self.remat!r}")
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token loss over tokens (B, S) against labels (B, S)
+        (``transformer.py:104-120``) -> (loss, {"loss", "tokens"})."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed_inputs(params, tokens, cfg,
+                         torch.zeros((), dtype=torch.int64,
+                                     device=tokens.device))
+        for lp in params["layers"]:
+            if self.remat == "full":
+                x = torch.utils.checkpoint.checkpoint(
+                    _block, lp, x, cfg, self.block_kv, use_reentrant=False)
+            else:
+                x = _block(lp, x, cfg, self.block_kv)
+        logits = _logits(params, x, cfg)
+        loss, denom = cross_entropy_loss(logits, batch["labels"],
+                                         batch.get("loss_mask"),
+                                         cfg.vocab_size)
+        return loss, {"loss": loss, "tokens": denom}
 
     @torch.no_grad()
     def prefill(self, params, batch: Dict[str, torch.Tensor],

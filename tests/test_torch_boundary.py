@@ -1,5 +1,5 @@
 """The port's boundary: no JAX, no ``repro``, CUDA by default, no silent
-fallback.
+fallback, and no ported-looking option that quietly does nothing.
 
 * With ``jax`` blocked, every ``repro_torch`` module and ``chip_smoke``
   import, and none of them pulls in ``repro`` or a ``repro.*`` module.
@@ -58,26 +58,63 @@ def test_no_jax_or_repro_import_in_sources():
                 assert mod not in ("jax", "jaxlib", "repro"), f"{f}: {line}"
 
 
-@pytest.mark.parametrize("entry", ["serve_engine", "from_arch"])
+def _small_train_config():
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    return TrainConfig(model=reduced(get_arch("gpt2-117m")), seq_len=16,
+                       global_batch=2)
+
+
+@pytest.mark.parametrize("entry", ["serve_engine", "from_arch", "train",
+                                   "Trainer"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     from repro_torch.launch.serve import serve_engine
+    from repro_torch.launch.train import Trainer, train
     from repro_torch.serve import InferenceEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "serve_engine":
             serve_engine("gpt2-117m", True, n_slots=1, prompt_len=8,
                          gen_tokens=2, quiet=True)
-        else:
+        elif entry == "from_arch":
             InferenceEngine.from_arch("gpt2-117m")
+        elif entry == "train":
+            train(_small_train_config(), max_steps=1)
+        else:
+            Trainer(_small_train_config())
 
 
-def test_cli_defaults_to_cuda(monkeypatch):
-    from repro_torch.launch import serve as cli
+@pytest.mark.parametrize("cli", ["serve", "train"])
+def test_cli_defaults_to_cuda(monkeypatch, cli):
+    from repro_torch.launch import serve, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        cli.main(["--reduced", "--batch", "1", "--prompt-len", "8",
-                  "--gen", "2"])
+        if cli == "serve":
+            serve.main(["--reduced", "--batch", "1", "--prompt-len", "8",
+                        "--gen", "2"])
+        else:
+            train.main(["--reduced", "--steps", "1", "--batch", "2",
+                        "--seq", "16"])
+
+
+def test_train_cli_refuses_what_is_not_ported():
+    from repro_torch.launch import train
+    for flags in (["--recover"], ["--ckpt-dir", "x"], ["--gns"],
+                  ["--optimizer", "sm3"], ["--remat", "dots"],
+                  ["--gns-shards", "2"], ["--gns-precursor-window", "4"],
+                  ["--gns-headroom", "3"], ["--ckpt-interval", "10"],
+                  ["--max-rollbacks", "1"], ["--inject-seed", "7"]):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            train.main(["--reduced", "--device", "cpu", "--steps", "1",
+                        "--batch", "2", "--seq", "16", *flags])
+
+
+def test_train_cli_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import train
+    assert train.main(["--reduced", "--device", "cpu", "--steps", "3",
+                       "--batch", "2", "--seq", "16", "--slw",
+                       "--duration", "2", "--eval-interval", "3"]) == 0
+    assert "done: steps=3" in capsys.readouterr().out
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -100,6 +137,27 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                     flash_decode_fwd_plain(qd, kc, kc, lengths)):
         assert torch.equal(a, b)
     assert (flash_attention_fwd.launches, flash_decode_fwd.launches) == before
+
+
+def test_cpu_tensors_through_the_backward_count_no_launch():
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_plain,
+        flash_attention_bwd_preprocess, flash_attention_fwd)
+    kernels = (flash_attention_fwd, flash_attention_bwd_preprocess,
+               flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    before = [f.launches for f in kernels]
+    g = torch.Generator().manual_seed(1)
+    q, k, v, do = (torch.randn(2, 9, 16, generator=g, dtype=torch.float64)
+                   for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v)
+    for a, b in zip(flash_attention_bwd(q, k, v, o, lse, do),
+                    flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        assert torch.equal(a, b)
+    x = torch.randn(1, 5, 2, 16, generator=g, requires_grad=True)
+    flash_attention(x, x, x).sum().backward()
+    assert x.grad is not None
+    assert [f.launches for f in kernels] == before
 
 
 def test_other_devices_are_refused():
