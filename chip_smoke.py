@@ -4,13 +4,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from this
-checkout and holds each against its plain PyTorch version, then drives
-the port's two paths at full width with random weights from a seed:
+checkout and holds each against its plain PyTorch version at every shape
+its path gives it, then drives the port's paths at full width with random
+weights from a seed:
 
 * serving: GPT-2 117M through ``repro_torch.launch.serve.serve_engine``,
   checking that it launched the forward flash-attention and flash-decode
   kernels the expected number of times and that its greedy token streams
   equal the plain (no custom kernel) path's on the same card;
+* paged serving: the same 16 requests from a pool of 48 pages of 64
+  tokens (two thirds of the dense cache), checking that admission waited
+  for pages, that the paged and dense decode kernels launched 12 x fused
+  and 12 x replay steps, that every page came back, and that each greedy
+  stream is the dense engine's;
+* the router: a paged and a dense replica under two admission policies
+  (32 requests), a prefill/decode role split, and one live slot migration
+  each way between dense and paged replicas, all on the one card, each
+  greedy stream the single dense engine's;
 * training: GPT-2 117M for 30 steps of sequence-length warmup through
   ``repro_torch.launch.train.Trainer``, checking finite losses, the plans
   of ``predict_trajectory``, the launch counts of the forward and the three
@@ -290,26 +300,32 @@ def _decode_library(q, kc, vc, lengths):
         qh, kh, vh, attn_mask=mask, enable_gqa=g > 1)
 
 
-def check_decode(q, kc, vc, lengths, what: str) -> list:
-    """[normalised o err, relative o err, m err, relative l err] of the
-    kernel's partials against its plain version on the same inputs (the
-    partials are fp32 for either input type); fails unless each is within
-    2e-5 and every empty slot gives (0, -1e30, 0)."""
-    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
-                                                  flash_decode_fwd_plain)
-    o, m, l = flash_decode_fwd(q, kc, vc, lengths)
-    ro, rm, rl = flash_decode_fwd_plain(q, kc, vc, lengths)
+def check_partials(got, ref, lengths, what: str) -> list:
+    """[normalised o err, relative o err, m err, relative l err] of a
+    decode kernel's partials against its plain version's on the same
+    inputs (fp32 for either input type); fails unless each is within 2e-5
+    and every empty slot gives (0, -1e30, 0)."""
     torch.cuda.synchronize()
+    (o, m, l), (ro, rm, rl) = got, ref
     norm_err = (o / l[..., None].clamp_min(1e-30)
                 - ro / rl[..., None].clamp_min(1e-30)).abs().max()
     rel = lambda a, r: ((a - r).abs() / r.abs().clamp_min(1.0)).max()
     e = [norm_err.item(), rel(o, ro).item(), (m - rm).abs().max().item(),
          rel(l, rl).item()]
-    check(all(x <= 2e-5 for x in e), f"fd {what}: {e}")
+    check(all(x <= 2e-5 for x in e), f"{what}: {e}")
     empty = lengths == 0
     check(bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
-               and (o[empty] == 0).all()), f"fd empty slot {what}")
+               and (o[empty] == 0).all()), f"empty slot {what}")
     return e
+
+
+def check_decode(q, kc, vc, lengths, what: str) -> list:
+    """:func:`check_partials` of the dense decode kernel."""
+    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_fwd_plain)
+    return check_partials(flash_decode_fwd(q, kc, vc, lengths),
+                          flash_decode_fwd_plain(q, kc, vc, lengths),
+                          lengths, f"fd {what}")
 
 
 def time_decode(q, kc, vc, lengths, what: str) -> dict:
@@ -443,6 +459,290 @@ def phase_parity(engine_out) -> None:
                                f"logit gap of {gaps[-1]}")
     emit("parity", requests=len(out["requests"]), diverged=diverged,
          near_tie_gaps=gaps)
+
+
+# the paged serving path: pages of 64 tokens, a pool of 48 pages, two
+# thirds of the dense-equivalent 8 slots x 9 pages of the 576-token cache
+PAGE_SIZE, N_PAGES = 64, 48
+
+
+def _paged_inputs(lengths, ps, max_pages, n_pages, g, dtype, seed,
+                  holes=()):
+    """q (B, 12, g, 64); k and v pools (n_pages, ps, 12, 64), each one
+    layer of a stacked (2, n_pages, ...) pool as the engine passes them;
+    a table with each row's pages drawn from a shuffled pool (slot 0 need
+    not own page 0), ``-1`` past them, and ``-1`` at each (row, page) of
+    ``holes``; lengths (B,) int32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = len(lengths)
+    q = torch.randn(b, H, g, D, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(2, n_pages, ps, H, D, device="cuda",
+                        generator=gen).to(dtype)[1] for _ in range(2))
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        seed)).tolist()
+    table = torch.full((b, max_pages), -1, dtype=torch.int32)
+    for i, ln in enumerate(lengths):
+        for j in range(-(-ln // ps)):
+            table[i, j] = perm.pop()
+    for i, j in holes:
+        table[i, j] = -1
+    return (q, k, v, table.cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def check_paged(q, k, v, table, lengths, what: str) -> list:
+    """:func:`check_partials` of the paged decode kernel; its plain version
+    gathers the pages, then runs the dense plain version."""
+    from repro_torch.kernels.flash_decode import (
+        flash_decode_paged_fwd, flash_decode_paged_fwd_plain)
+    return check_partials(
+        flash_decode_paged_fwd(q, k, v, table, lengths),
+        flash_decode_paged_fwd_plain(q, k, v, table, lengths), lengths,
+        f"paged {what}")
+
+
+def _owned_rows(table, lengths, ps) -> int:
+    """Cache rows the paged kernel reads: keys j < lengths[b] whose page
+    ``table[b, j // ps]`` is owned."""
+    cols = torch.arange(table.shape[1] * ps, device=table.device)
+    owned = table[:, cols // ps] >= 0
+    return int((owned & (cols[None, :] < lengths[:, None].long())).sum())
+
+
+def time_paged(q, k, v, table, lengths, what: str) -> dict:
+    """Kernel, plain and library times at one shape, and the dense kernel
+    over the same rows gathered into a (B, max_pages x ps) cache.  The
+    library call is SDPA over that gathered cache; the gather runs before
+    the timing."""
+    from repro_torch.kernels.flash_decode import (
+        flash_decode_fwd, flash_decode_paged_fwd,
+        flash_decode_paged_fwd_plain, gather_pages)
+    b, kvh, g, d = q.shape
+    ps = k.shape[1]
+    rows = _owned_rows(table, lengths, ps)
+    elt = q.element_size()
+    nbytes = (2 * rows * kvh * d * elt + table.numel() * 4
+              + q.numel() * elt + 4 * b + (q.numel() + 2 * b * kvh * g) * 4)
+    t_bound, by = bound(nbytes, 4 * rows * kvh * g * d, q.dtype)
+    kc, vc = gather_pages(k, table), gather_pages(v, table)
+    return {"max_abs_err": check_paged(q, k, v, table, lengths, what)[0],
+            **times(lambda: flash_decode_paged_fwd(q, k, v, table, lengths),
+                    lambda: flash_decode_paged_fwd_plain(q, k, v, table,
+                                                         lengths),
+                    _decode_library(q, kc, vc, lengths)),
+            "library_covers": "SDPA over the pages gathered into a dense "
+                              "cache before the timing (gather not timed)",
+            "dense_kernel_ms": device_ms(
+                lambda: flash_decode_fwd(q, kc, vc, lengths)),
+            "owned_rows": rows, "bound_ms": t_bound, "bound_by": by}
+
+
+def paged_main_lengths(main_lengths) -> tuple:
+    """(lengths, free slots) of a fused step on the paged path: the dense
+    path's mid-generation lengths, slot by slot until one's pages do not
+    fit in the pool, then free slots (length 1, pos 0 plus the step's own
+    token, and no page)."""
+    out, used, full = [], 0, False
+    for ln in main_lengths:
+        need = -(-ln // PAGE_SIZE)
+        full = full or used + need > N_PAGES
+        out.append(1 if full else ln)
+        used += 0 if full else need
+    return out, [i for i, ln in enumerate(out) if ln == 1]
+
+
+def phase_flash_decode_paged(main_lengths, cache_len: int) -> tuple:
+    """Holds the paged kernel against its plain version in fp32 and bf16,
+    page sizes 16 and 64, G 1 and 4, over lengths 0, 1, one page, one past
+    a page and the full table, with -1 inside rows (past the length and
+    inside it) and at their tails, and at the paged engine's shape: 8
+    slots, 9 pages of 64, a pool of 48.  Times the engine's shape."""
+    errs, checked = {}, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for ps in (16, 64):
+            mp = -(-cache_len // ps)
+            lengths = [0, 1, ps, ps + 1, mp * ps, 2 * ps + 5, 1, 2 * ps]
+            for g in (1, 4):
+                key = f"{str(dtype)[6:]}_ps{ps}_g{g}"
+                # row 5: a hole inside its length; row 6: no page at all;
+                # row 7: a hole past its length, then an owned page
+                q, k, v, table, lens = _paged_inputs(
+                    lengths, ps, mp, 64, g, dtype, ps + g,
+                    holes=[(5, 1), (6, 0)])
+                table[7, 3] = table[4, 0]  # shared page id past row 7's end
+                errs[key] = check_paged(q, k, v, table, lens, key)
+                if dtype == torch.float32 and g == 1:
+                    checked.add((len(lengths), mp, ps, 64))
+    lengths, free = paged_main_lengths(main_lengths)
+    mp = -(-cache_len // PAGE_SIZE)
+    timing = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = f"{str(dtype)[6:]}_main"
+        args = _paged_inputs(lengths, PAGE_SIZE, mp, N_PAGES, 1, dtype, 7,
+                             holes=[(i, 0) for i in free])
+        timing[key] = time_paged(*args, key)
+    checked.add((len(lengths), mp, PAGE_SIZE, N_PAGES))
+    emit("flash_decode_paged_fwd", max_err=errs, timing=timing,
+         main_lengths=lengths)
+    return timing, checked
+
+
+def phase_engine_paged(dev: dict, engine: dict, fa_checked: set,
+                       fd_checked: set, pd_checked: set) -> dict:
+    """Serves phase ``engine``'s 16 requests on the same weights from a
+    pool of 48 pages of 64 tokens; its greedy streams must be the dense
+    engine's, token for token."""
+    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_paged_fwd)
+    from repro_torch.serve import cache_nbytes, prefill_split
+    paged_kw = dict(paged=True, page_size=PAGE_SIZE, n_pages=N_PAGES)
+    flash_decode_fwd.launches = 0
+    flash_decode_paged_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = _serve(**paged_kw)
+    fd, pd = flash_decode_fwd.launches, flash_decode_paged_fwd.launches
+    eng, stats = out["engine"], out["stats"]
+    state = eng.state
+    n_layers = eng.model.cfg.n_layers
+    ladder = eng.scheduler.ladder
+    replay = sum(len(r.tokens) - prefill_split(len(r.tokens), ladder)
+                 for r in out["requests"])
+    dense = engine["out"]
+    for a, b in zip(out["results"], dense["results"]):
+        check(a.tokens == b.tokens, f"paged uid {a.uid} differs from the "
+                                    f"dense engine's stream")
+    check(state.refusals > 0, "admission never waited for pages")
+    check(pd == n_layers * stats.decode_steps,
+          f"flash_decode_paged_fwd launches {pd} vs {n_layers} x "
+          f"{stats.decode_steps} fused steps")
+    check(fd == n_layers * replay, f"flash_decode_fwd launches {fd} vs "
+                                   f"{n_layers} x {replay} replay steps")
+    state.alloc.check()
+    check(state.alloc.pages_in_use == 0, "pages left in use")
+    mp = state.alloc.pages_per_slot
+    check({(eng.cfg.n_slots, mp, PAGE_SIZE, N_PAGES)} <= pd_checked,
+          f"paged shape not checked in {pd_checked}")
+    check({(1, eng.cfg.cache_len)} <= fd_checked, "replay shape not checked")
+    check({(1, prefill_split(len(r.tokens), ladder))
+           for r in out["requests"]} <= fa_checked, "prefill shapes")
+    kv = lambda c: cache_nbytes({n: c[n] for n in ("k", "v")})
+    peak = torch.cuda.max_memory_allocated()
+    busy, names = device_profile(lambda: _serve(**paged_kw))
+    wall = out["wall_s"] * 1e3
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv_: -kv_[1])[:6]}
+    emit("engine_paged", card=dev["nvidia_smi"],
+         prefill_tok_s=out["prefill_tok_s"],
+         decode_tok_s=out["decode_tok_s"], p50_ms=out["p50_s"] * 1e3,
+         p95_ms=out["p95_s"] * 1e3, fused_steps=stats.decode_steps,
+         replay_steps=replay, admission_waits=state.refusals,
+         table_uploads=state.table_uploads,
+         launches={"flash_decode_paged_fwd": pd, "flash_decode_fwd": fd},
+         pool_kv_bytes=kv(eng.cache),
+         dense_kv_bytes=kv(engine["out"]["engine"].cache),
+         max_memory_allocated=peak, wall_ms=wall,
+         dense_engine={"decode_tok_s": dense["decode_tok_s"],
+                       "p50_ms": dense["p50_s"] * 1e3,
+                       "fused_steps": dense["stats"].decode_steps},
+         traced_run={"device_busy_ms": busy,
+                     "device_idle_share": 1 - busy / wall,
+                     "top_kernels_ms": top})
+    return {"flash_decode_paged_fwd": pd, "flash_decode_fwd": fd}
+
+
+def phase_router(engine: dict) -> dict:
+    """On the one card, with phase ``engine``'s weights: two replicas of 8
+    slots (paged shortest-prompt-first, dense budget-packing) serve 32
+    requests; a prefill-role replica feeds a paged decode-role one the 16
+    requests; one request moves mid-flight dense -> paged and one paged ->
+    dense.  Every greedy stream must be the single dense engine's."""
+    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_paged_fwd)
+    from repro_torch.launch.serve import make_requests, scheduler_config
+    from repro_torch.serve import (InferenceEngine, Replica, Router,
+                                   make_replicas, prefill_split)
+    dense_eng = engine["out"]["engine"]
+    model, params = dense_eng.model, dense_eng.params
+    n_layers = model.cfg.n_layers
+    cache_len = PROMPT_LEN + GEN
+    cfg = lambda **kw: scheduler_config(8, PROMPT_LEN, cache_len, **kw)
+    paged_kw = dict(paged=True, page_size=PAGE_SIZE, n_pages=N_PAGES)
+    reqs = make_requests(model.cfg, 32, PROMPT_LEN, GEN, seed=SEED)
+    oracle = {r.uid: r.tokens for r in engine["out"]["results"]}
+    oracle.update({r.uid: r.tokens for r in InferenceEngine(
+        model, params, cfg(), device="cuda").run(reqs[16:])})
+    ladder = dense_eng.scheduler.ladder
+    replay = lambda rs: sum(len(r.tokens) - prefill_split(len(r.tokens),
+                                                          ladder) for r in rs)
+    totals = {"flash_decode_paged_fwd": 0, "flash_decode_fwd": 0}
+
+    def counted(run):
+        flash_decode_fwd.launches = flash_decode_paged_fwd.launches = 0
+        t0 = time.perf_counter()
+        results = run()
+        wall = time.perf_counter() - t0
+        got = (flash_decode_paged_fwd.launches, flash_decode_fwd.launches)
+        totals["flash_decode_paged_fwd"] += got[0]
+        totals["flash_decode_fwd"] += got[1]
+        for r in results:
+            check(r.tokens == oracle[r.uid], f"router uid {r.uid} differs "
+                                             f"from the single engine's")
+        return got, wall
+
+    reps = [Replica(model, params, cfg(policy="shortest-prompt-first",
+                                       **paged_kw), device="cuda",
+                    name="paged-spf"),
+            Replica(model, params, cfg(policy="budget-packing"),
+                    device="cuda", name="dense-budget")]
+    router = Router(reps)
+    (pd, fd), wall = counted(lambda: router.run(reqs))
+    check(pd == n_layers * reps[0].stats.decode_steps, f"router paged {pd}")
+    check(fd == n_layers * (reps[1].stats.decode_steps + replay(reqs)),
+          f"router dense {fd}")
+    check(len(router.stats.routed) == 2, f"routed {router.stats.routed}")
+    two = {"wall_ms": wall * 1e3, **router.summary(),
+           "launches": {"flash_decode_paged_fwd": pd, "flash_decode_fwd": fd},
+           "admission_waits": reps[0].state.refusals}
+
+    [pair] = make_replicas(model, params, cfg(**paged_kw), 1, device="cuda",
+                           disaggregate=True)
+    (pd, fd), wall = counted(lambda: Router([pair]).run(reqs[:16]))
+    check(pd == n_layers * pair.stats.decode_steps, f"disagg paged {pd}")
+    check(fd == n_layers * replay(reqs[:16]), f"disagg dense {fd}")
+    check(pair.prefill_replica.stats.prefill_tokens
+          == sum(len(r.tokens) for r in reqs[:16]), "prefill partner")
+    disagg = {"wall_ms": wall * 1e3, "decode_tok_s": pair.stats.decode_tok_s,
+              "launches": {"flash_decode_paged_fwd": pd,
+                           "flash_decode_fwd": fd}}
+
+    moves = {}
+    dense_rep = Replica(model, params, cfg(), device="cuda", name="dense")
+    paged_rep = Replica(model, params, cfg(**paged_kw), device="cuda",
+                        name="paged")
+    for name, src, dst, req in (("dense_to_paged", dense_rep, paged_rep,
+                                 reqs[0]),
+                                ("paged_to_dense", paged_rep, dense_rep,
+                                 reqs[1])):
+        def move():
+            src.scheduler.submit(req)
+            src.pump()  # admit and one fused step
+            src.pump()  # one more step mid-flight
+            [slot] = list(src.scheduler.active)
+            src.migrate_slot_to(slot, dst)
+            check(not src.scheduler.busy, "source kept the request")
+            while dst.scheduler.busy:
+                dst.pump()
+            return dst.take_finished()
+        (pd, fd), _ = counted(move)
+        moves[name] = {"launches": {"flash_decode_paged_fwd": pd,
+                                    "flash_decode_fwd": fd}}
+    paged_rep.state.alloc.check()
+    check(paged_rep.state.alloc.pages_in_use == 0
+          and reps[0].state.alloc.pages_in_use == 0
+          and pair.state.alloc.pages_in_use == 0, "pages left in use")
+    emit("router", two_replicas=two, disaggregated=disagg, migrations=moves,
+         requests_checked=len(oracle), launches=totals)
+    return totals
 
 
 def check_attention_bwd(q, k, v, o, lse, do, what: str) -> list:
@@ -758,6 +1058,11 @@ def main() -> int:
     fd_timing, fd_checked = phase_flash_decode(main_lengths, PROMPT_LEN + GEN)
     engine = phase_engine(dev, fa_checked, fd_checked)
     phase_parity(engine)
+    pd_timing, pd_checked = phase_flash_decode_paged(main_lengths,
+                                                     PROMPT_LEN + GEN)
+    paged_launches = phase_engine_paged(dev, engine, fa_checked, fd_checked,
+                                        pd_checked)
+    router_launches = phase_router(engine)
     serve_launches = engine["launches"]
     del engine
     torch.cuda.empty_cache()
@@ -771,7 +1076,8 @@ def main() -> int:
 
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
-    by_path = {"serve": serve_launches, "train": train["launches"]}
+    by_path = {"serve": serve_launches, "serve_paged": paged_launches,
+               "router": router_launches, "train": train["launches"]}
     rows = [("flash_attention_fwd", "flash_attention_fwd.cu",
              "flash_attention/kernel.py:168", fa_timing["float32_1x512"]),
             ("flash_attention_bwd_preprocess", "flash_attention_bwd.cu",
@@ -781,7 +1087,9 @@ def main() -> int:
             ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
              "flash_attention/kernel.py:348", bwd_timing["dkv"]),
             ("flash_decode_fwd", "flash_decode.cu",
-             "flash_decode/kernel.py:109", fd_timing["float32_main"])]
+             "flash_decode/kernel.py:109", fd_timing["float32_main"]),
+            ("flash_decode_paged_fwd", "flash_decode.cu",
+             "flash_decode/kernel.py:247", pd_timing["float32_main"])]
     entries = []
     for name, source, rep, t in rows:
         counts = {path: c[name] for path, c in by_path.items() if name in c}

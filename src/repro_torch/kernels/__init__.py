@@ -8,7 +8,8 @@ and ``ops.py`` (the model-layout wrapper).
 * ``flash_attention`` — causal attention for training and prefill: forward
   (``csrc/flash_attention_fwd.cu``) and the three backward kernels
   (``csrc/flash_attention_bwd.cu``) behind a ``torch.autograd.Function``.
-* ``flash_decode`` — split-KV single-token decode (``csrc/flash_decode.cu``).
+* ``flash_decode`` — split-KV single-token decode over a dense cache or
+  through a page table (``csrc/flash_decode.cu``).
 
 The backend rule.  ``attn_backend`` is "blockwise" or "flash";
 ``decode_backend`` is "reference" or "kernel".  "blockwise" and

@@ -1,24 +1,30 @@
-// Split-KV flash-decode for Hopper (sm_90a), plain C interface.
+// Split-KV flash-decode for Hopper (sm_90a), dense and paged, plain C
+// interface.
 //
-// Replaces the TPU kernel `flash_decode_fwd` of
-// src/repro/kernels/flash_decode/kernel.py (body `_decode_kernel`, line 41;
-// pallas_call at line 109).  Same function: one query row per slot, grouped
-// q (B, KV, G, D), attends over its (B, S, KV, D) cache rows col < lengths[b]
-// ("count of valid entries"), in fp32 whatever the cache dtype; it emits the
-// unnormalized fp32 partials o (B, KV, G, D), m (B, KV, G), l (B, KV, G).
-// A slot with nothing valid yields (0, -1e30, 0).
+// Replaces two TPU kernels of src/repro/kernels/flash_decode/kernel.py:
+//   * `flash_decode_fwd` (body `_decode_kernel`, line 41; pallas_call at
+//     line 109): one query row per slot, grouped q (B, KV, G, D), attends
+//     over its (B, S, KV, D) cache rows col < lengths[b] ("count of valid
+//     entries");
+//   * `flash_decode_paged_fwd` (body `_paged_decode_kernel`, line 142;
+//     pallas_call at line 247): the same over shared (n_pages, page_size,
+//     KV, D) pools, slot b's token j living in page page_table[b, j / ps]
+//     at offset j % ps; -1 marks an unowned page, which is never read.
+// Both compute in fp32 whatever the cache dtype and emit the unnormalized
+// fp32 partials o (B, KV, G, D), m (B, KV, G), l (B, KV, G).  A slot with
+// nothing valid yields (0, -1e30, 0).
 //
-// What bounds it on the H100: bytes.  Each cache element read feeds G
-// multiply-adds, so with G = 1 (gpt2) the kernel does ~0.5 operation per
+// What bounds them on the H100: bytes.  Each cache element read feeds G
+// multiply-adds, so with G = 1 (gpt2) a kernel does ~0.5 operation per
 // byte (fp32) and the least time is 2 * sum(lengths) * KV * D * elt bytes
 // over 3.35 TB/s.  The design therefore reads each valid cache row once,
 // reads nothing past lengths[b], and keeps enough blocks in flight to use
-// the memory: the TPU grid (B, KV, kv_blocks) ran its kv axis in order on
-// one core, but B * KV is only 96 for 8 gpt2 slots, under the 132 SMs.  So
-// the cache is split along S into chunks of CHUNK keys, one block per
-// (chunk, kv head, slot); each block writes its own (o, m, l) partial, and a
-// second small kernel merges the chunks with the rule of
-// src/repro/kernels/flash_decode/ops.py:60-61
+// the memory: the TPU grids (B, KV, kv_blocks) and (B, KV, max_pages) ran
+// their last axis in order on one core, but B * KV is only 96 for 8 gpt2
+// slots, under the 132 SMs.  So the logical cache is split into chunks of
+// CHUNK keys, one block per (chunk, kv head, slot); each block writes its
+// own (o, m, l) partial, and a second small kernel merges the chunks with
+// the rule of src/repro/kernels/flash_decode/ops.py:60-61
 // (gm = max m; o = sum o*exp(m-gm); l = sum l*exp(m-gm)).  A chunk wholly
 // past lengths[b] returns before it loads anything, and the merge never
 // reads it.  Inside a block each warp takes every fourth key, a lane holds
@@ -26,11 +32,24 @@
 // contiguous row segment), dot products reduce through warp shuffles,
 // softmax runs per chunk in shared memory, and the four warps' P.V sums
 // meet in shared memory.
+//
+// The paged kernel differs only in where key j of a chunk lives: the block
+// stages the page ids its chunk spans in shared memory once (a chunk of
+// 128 keys spans at most 128 / page_size + 1 pages), then addresses key j
+// through them.  Neither the k nor the v row of an unowned key is loaded:
+// inside the slot's length it counts as a zero key and value, as in the
+// plain version (the reference's oracle, `gather_pages`, zeroes unowned
+// pages); the TPU kernel skips such a page instead.  The two agree on
+// every row whose unowned entries lie at or past its length, which is
+// every live row of the engine; its inactive rows (length 1, no page)
+// give (0, 0, 1) here and (0, -1e30, 0) on the TPU, and nobody reads
+// them.  A table entry past the slot's length is never read.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
@@ -39,6 +58,9 @@ constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int UNROLL = 4;    // keys in flight per warp
 constexpr float NEG_INF = -1e30f;
+
+template <int N>
+using Int = std::integral_constant<int, N>;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -59,28 +81,54 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(THREADS)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
-                    float* __restrict__ po, float* __restrict__ pm,
-                    float* __restrict__ pl, int s, int kvh, int n_splits,
-                    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                    int64_t v_ss, int64_t v_sh, float scale) {
+// Key j of a chunk in a dense (B, S, KV, D) cache: k and v point at the
+// chunk's first row of this (slot, kv head).
+template <typename T>
+struct DenseRows {
+  const T* k;
+  const T* v;
+  int64_t k_ss, v_ss;
+  __device__ bool owned(int) const { return true; }
+  __device__ const T* key(int j) const { return k + j * k_ss; }
+  __device__ const T* value(int j) const { return v + j * v_ss; }
+};
+
+// Key j of a chunk in a paged pool: k and v point at this kv head's
+// column of page 0; pid holds the page ids of the chunk's pages, the first
+// of them logical page page0.
+template <typename T>
+struct PagedRows {
+  const T* k;
+  const T* v;
+  const int* pid;
+  int col0, page0, ps;
+  int64_t k_sp, k_so, v_sp, v_so;
+  __device__ int page(int j) const { return pid[(col0 + j) / ps - page0]; }
+  __device__ bool owned(int j) const { return page(j) >= 0; }
+  __device__ const T* key(int j) const {
+    return k + page(j) * k_sp + ((col0 + j) % ps) * k_so;
+  }
+  __device__ const T* value(int j) const {
+    return v + page(j) * v_sp + ((col0 + j) % ps) * v_so;
+  }
+};
+
+// One block's chunk of n (>= 1) keys of one (slot, kv head) `cell`:
+// scores, chunk softmax, P.V, and the chunk's partial written at `part`.
+template <typename T, int D, int G, class Rows>
+__device__ __forceinline__ void split_body(const T* __restrict__ q,
+                                           const Rows& rows, int n,
+                                           int64_t cell, int64_t part,
+                                           float* __restrict__ po,
+                                           float* __restrict__ pm,
+                                           float* __restrict__ pl,
+                                           float scale) {
   constexpr int E = D / 32;  // elements per lane, at stride 32
   __shared__ float p_s[G][CHUNK];
   __shared__ float red[WARPS][G][D];
   __shared__ float m_s[G], l_s[G];
-
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int len = lengths[b];
-  if (len > s) len = s;
-  const int col0 = split * CHUNK;
-  if (col0 >= len) return;  // wholly past the slot's valid length
-  const int n = min(CHUNK, len - col0);
 
-  const int64_t cell = (int64_t)b * kvh + h;  // (slot, kv head)
   float qr[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g)
@@ -88,18 +136,18 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < E; ++e)
       qr[g][e] = to_f32(q[(cell * G + g) * D + lane + 32 * e]);
 
-  const T* kb = k + b * k_sb + h * k_sh + (int64_t)col0 * k_ss;
-  const T* vb = v + b * v_sb + h * v_sh + (int64_t)col0 * v_ss;
-
-  // scores: s = (q . k) * scale, one key per warp per unrolled slot
+  // scores: s = (q . k) * scale, one key per warp per unrolled slot;
+  // an unowned key is a zero key, not loaded
   for (int j0 = warp; j0 < n; j0 += WARPS * UNROLL) {
     float kr[UNROLL][E];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = j0 + u * WARPS;
+      const bool ok = j < n && rows.owned(j);
+      const T* row = ok ? rows.key(j) : nullptr;
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        kr[u][e] = j < n ? to_f32(kb[j * k_ss + lane + 32 * e]) : 0.f;
+        kr[u][e] = ok ? to_f32(row[lane + 32 * e]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -116,7 +164,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // softmax over this chunk's n valid keys, one warp per query row
+  // softmax over this chunk's n keys, one warp per query row
   for (int g = warp; g < G; g += WARPS) {
     float mx = NEG_INF;
     for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[g][j]);
@@ -146,9 +194,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = j0 + u * WARPS;
+      const bool ok = j < n && rows.owned(j);
+      const T* row = ok ? rows.value(j) : nullptr;
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        vr[u][e] = j < n ? to_f32(vb[j * v_ss + lane + 32 * e]) : 0.f;
+        vr[u][e] = ok ? to_f32(row[lane + 32 * e]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -169,7 +219,6 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < E; ++e) red[warp][g][lane + 32 * e] = acc[g][e];
   __syncthreads();
 
-  const int64_t part = cell * n_splits + split;
   for (int idx = threadIdx.x; idx < G * D; idx += THREADS) {
     const int g = idx / D, d = idx % D;
     float sum = 0.f;
@@ -183,7 +232,57 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(THREADS)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
+                    float* __restrict__ po, float* __restrict__ pm,
+                    float* __restrict__ pl, int s, int kvh, int n_splits,
+                    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                    int64_t v_ss, int64_t v_sh, float scale) {
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int len = min(lengths[b], s);
+  const int col0 = split * CHUNK;
+  if (col0 >= len) return;  // wholly past the slot's valid length
+  const int64_t cell = (int64_t)b * kvh + h;  // (slot, kv head)
+  const DenseRows<T> rows{k + b * k_sb + h * k_sh + (int64_t)col0 * k_ss,
+                          v + b * v_sb + h * v_sh + (int64_t)col0 * v_ss,
+                          k_ss, v_ss};
+  split_body<T, D, G>(q, rows, min(CHUNK, len - col0), cell,
+                      cell * n_splits + split, po, pm, pl, scale);
+}
+
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(THREADS)
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ table,
+                   const int* __restrict__ lengths, float* __restrict__ po,
+                   float* __restrict__ pm, float* __restrict__ pl,
+                   int max_pages, int ps, int kvh, int n_splits, int64_t k_sp,
+                   int64_t k_so, int64_t k_sh, int64_t v_sp, int64_t v_so,
+                   int64_t v_sh, float scale) {
+  __shared__ int pid_s[CHUNK + 1];
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int len = min(lengths[b], max_pages * ps);
+  const int col0 = split * CHUNK;
+  if (col0 >= len) return;  // wholly past the slot's valid length
+  const int n = min(CHUNK, len - col0);
+  // the chunk's pages, logical page0 .. page0 + n_pages - 1, all below
+  // ceil(len / ps) <= max_pages: no table entry past the length is read
+  const int page0 = col0 / ps;
+  const int n_pages = (col0 + n - 1) / ps - page0 + 1;
+  for (int i = threadIdx.x; i < n_pages; i += THREADS)
+    pid_s[i] = table[(int64_t)b * max_pages + page0 + i];
+  __syncthreads();
+  const int64_t cell = (int64_t)b * kvh + h;
+  const PagedRows<T> rows{k + h * k_sh, v + h * v_sh, pid_s, col0, page0, ps,
+                          k_sp, k_so, v_sp, v_so};
+  split_body<T, D, G>(q, rows, n, cell, cell * n_splits + split, po, pm, pl,
+                      scale);
+}
+
 // Merge the chunk partials of one (slot, kv head): block of D threads.
+// ``s`` is the logical cache length (max_pages * page_size when paged).
 __global__ void decode_merge_kernel(const int* __restrict__ lengths,
                                     const float* __restrict__ po,
                                     const float* __restrict__ pm,
@@ -216,35 +315,38 @@ __global__ void decode_merge_kernel(const int* __restrict__ lengths,
   }
 }
 
-template <typename T, int D, int G>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, float* po, float* pm, float* pl, int b,
-                   int s, int kvh, int n_splits, const int64_t* ks,
-                   const int64_t* vs, cudaStream_t stream) {
-  dim3 grid(n_splits, kvh, b);
-  decode_split_kernel<T, D, G><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, po, pm, pl, s, kvh, n_splits, ks[0],
-      ks[1], ks[2], vs[0], vs[1], vs[2], 1.f / std::sqrt((float)D));
-  return cudaGetLastError();
+// Call launch(T(), Int<D>(), Int<G>()) for a supported (dtype, d, g);
+// return the launch's error, or cudaErrorInvalidValue for another shape.
+template <typename T, int D, class F>
+bool by_group(int g, F& launch) {
+  switch (g) {
+    case 1: launch(T(), Int<D>(), Int<1>()); return true;
+    case 2: launch(T(), Int<D>(), Int<2>()); return true;
+    case 4: launch(T(), Int<D>(), Int<4>()); return true;
+    case 8: launch(T(), Int<D>(), Int<8>()); return true;
+    default: return false;
+  }
 }
 
-template <typename T, int D>
-cudaError_t launch_g(int g, const void* q, const void* k, const void* v,
-                     const int* lengths, float* po, float* pm, float* pl,
-                     int b, int s, int kvh, int n_splits, const int64_t* ks,
-                     const int64_t* vs, cudaStream_t st) {
-  switch (g) {
-    case 1: return launch<T, D, 1>(q, k, v, lengths, po, pm, pl, b, s, kvh,
-                                   n_splits, ks, vs, st);
-    case 2: return launch<T, D, 2>(q, k, v, lengths, po, pm, pl, b, s, kvh,
-                                   n_splits, ks, vs, st);
-    case 4: return launch<T, D, 4>(q, k, v, lengths, po, pm, pl, b, s, kvh,
-                                   n_splits, ks, vs, st);
-    case 8: return launch<T, D, 8>(q, k, v, lengths, po, pm, pl, b, s, kvh,
-                                   n_splits, ks, vs, st);
-    default: return cudaErrorInvalidValue;
-  }
+template <class F>
+cudaError_t dispatch(int dtype, int d, int g, F launch) {
+  bool ok = false;
+  if (dtype == 0 && d == 64) ok = by_group<float, 64>(g, launch);
+  else if (dtype == 0 && d == 128) ok = by_group<float, 128>(g, launch);
+  else if (dtype == 1 && d == 64) ok = by_group<__nv_bfloat16, 64>(g, launch);
+  else if (dtype == 1 && d == 128) ok = by_group<__nv_bfloat16, 128>(g, launch);
+  return ok ? cudaGetLastError() : cudaErrorInvalidValue;
+}
+
+cudaError_t merge(const void* lengths, void* po, void* pm, void* pl, void* o,
+                  void* m, void* l, int b, int s, int kvh, int g, int d,
+                  int n_splits, cudaStream_t st) {
+  decode_merge_kernel<<<dim3(kvh, b), d, 0, st>>>(
+      static_cast<const int*>(lengths), static_cast<const float*>(po),
+      static_cast<const float*>(pm), static_cast<const float*>(pl),
+      static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
+      s, kvh, g, d, n_splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -253,7 +355,7 @@ cudaError_t launch_g(int g, const void* q, const void* k, const void* v,
 extern "C" int flash_decode_chunk() { return CHUNK; }
 
 // q (B, KV, G, D) contiguous; k, v (B, S, KV, D) with unit stride on D and
-// element strides (b, s, h) in k_strides / v_strides; lengths (B,) int32.
+// element strides (b, s, h) in k_s* / v_s*; lengths (B,) int32.
 // Scratch po (B, KV, n_splits, G, D), pm / pl (B, KV, n_splits, G) fp32,
 // n_splits = ceil(S / CHUNK).  Outputs o (B, KV, G, D), m / l (B, KV, G)
 // fp32.  dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
@@ -266,28 +368,52 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_splits = (s + CHUNK - 1) / CHUNK;
-  const int64_t ks[3] = {k_sb, k_ss, k_sh}, vs[3] = {v_sb, v_ss, v_sh};
-  const int* len = static_cast<const int*>(lengths);
-  float *fpo = static_cast<float*>(po), *fpm = static_cast<float*>(pm),
-        *fpl = static_cast<float*>(pl);
-  cudaError_t err;
-  if (dtype == 0 && d == 64)
-    err = launch_g<float, 64>(g, q, k, v, len, fpo, fpm, fpl, b, s, kvh,
-                              n_splits, ks, vs, st);
-  else if (dtype == 0 && d == 128)
-    err = launch_g<float, 128>(g, q, k, v, len, fpo, fpm, fpl, b, s, kvh,
-                               n_splits, ks, vs, st);
-  else if (dtype == 1 && d == 64)
-    err = launch_g<__nv_bfloat16, 64>(g, q, k, v, len, fpo, fpm, fpl, b, s,
-                                      kvh, n_splits, ks, vs, st);
-  else if (dtype == 1 && d == 128)
-    err = launch_g<__nv_bfloat16, 128>(g, q, k, v, len, fpo, fpm, fpl, b, s,
-                                       kvh, n_splits, ks, vs, st);
-  else
-    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_splits, kvh, b);
+  const float scale = 1.f / std::sqrt((float)d);
+  cudaError_t err = dispatch(dtype, d, g, [&](auto t, auto dd, auto gg) {
+    using T = decltype(t);
+    decode_split_kernel<T, decltype(dd)::value, decltype(gg)::value>
+        <<<grid, THREADS, 0, st>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const int*>(lengths),
+            static_cast<float*>(po), static_cast<float*>(pm),
+            static_cast<float*>(pl), s, kvh, n_splits, k_sb, k_ss, k_sh,
+            v_sb, v_ss, v_sh, scale);
+  });
   if (err != cudaSuccess) return (int)err;
-  decode_merge_kernel<<<dim3(kvh, b), d, 0, st>>>(
-      len, fpo, fpm, fpl, static_cast<float*>(o), static_cast<float*>(m),
-      static_cast<float*>(l), s, kvh, g, d, n_splits);
-  return (int)cudaGetLastError();
+  return (int)merge(lengths, po, pm, pl, o, m, l, b, s, kvh, g, d, n_splits,
+                    st);
+}
+
+// q (B, KV, G, D) contiguous; k, v pools (n_pages, page_size, KV, D) with
+// unit stride on D and element strides (page, offset, h) in k_s* / v_s*;
+// page_table (B, max_pages) int32 contiguous, -1 = unowned, every other
+// entry a page id below n_pages; lengths (B,) int32, clamped to
+// max_pages * page_size.  Scratch and outputs as flash_decode_fwd with
+// n_splits = ceil(max_pages * page_size / CHUNK).  Returns a cudaError_t.
+extern "C" int flash_decode_paged_fwd(
+    const void* q, const void* k, const void* v, const void* page_table,
+    const void* lengths, void* po, void* pm, void* pl, void* o, void* m,
+    void* l, int b, int max_pages, int page_size, int kvh, int g, int d,
+    int64_t k_sp, int64_t k_so, int64_t k_sh, int64_t v_sp, int64_t v_so,
+    int64_t v_sh, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int s = max_pages * page_size;
+  const int n_splits = (s + CHUNK - 1) / CHUNK;
+  const dim3 grid(n_splits, kvh, b);
+  const float scale = 1.f / std::sqrt((float)d);
+  cudaError_t err = dispatch(dtype, d, g, [&](auto t, auto dd, auto gg) {
+    using T = decltype(t);
+    paged_split_kernel<T, decltype(dd)::value, decltype(gg)::value>
+        <<<grid, THREADS, 0, st>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const int*>(page_table),
+            static_cast<const int*>(lengths), static_cast<float*>(po),
+            static_cast<float*>(pm), static_cast<float*>(pl), max_pages,
+            page_size, kvh, n_splits, k_sp, k_so, k_sh, v_sp, v_so, v_sh,
+            scale);
+  });
+  if (err != cudaSuccess) return (int)err;
+  return (int)merge(lengths, po, pm, pl, o, m, l, b, s, kvh, g, d, n_splits,
+                    st);
 }

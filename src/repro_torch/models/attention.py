@@ -1,5 +1,5 @@
 """GQA attention: training and prefill through flash or blockwise, cached decode
-(``repro/models/attention.py:33-312``, dense and per-slot paths).
+(``repro/models/attention.py:33-312``: dense, per-slot and paged paths).
 
 Backends (see ``repro_torch.kernels``): ``attn_backend`` "flash" runs the
 CUDA flash-attention kernels on CUDA tensors, forward and backward, through
@@ -7,9 +7,10 @@ the ``torch.autograd.Function`` of ``kernels.flash_attention.ops``;
 "blockwise" runs the plain online-softmax scan, which torch autograd
 differentiates; ``decode_backend`` "kernel" runs the CUDA split-KV decode
 kernel for single-token steps, "reference" the plain masked softmax over
-the whole cache.  On CPU tensors the kernel backends run the kernels'
-plain versions.  Rotary positions are not ported yet: the served presets
-use learned positions.
+the whole cache (a paged cache is gathered through its page table first;
+the kernel walks the table itself).  On CPU tensors the kernel backends
+run the kernels' plain versions.  Rotary positions are not ported yet:
+the served presets use learned positions.
 """
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ATTN_BACKENDS, DECODE_BACKENDS, wants_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.kernel import gather_pages
+from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                  flash_decode_paged)
 from repro_torch.models.layers import ParamDef, rms_norm
 
 NEG_INF = -1e30
@@ -154,12 +157,43 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
         cache[:, idx[0]] = new.to(cache.dtype)
 
 
+PagedWrite = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def paged_write_rows(page_table: torch.Tensor, pos: torch.Tensor,
+                     active: Optional[torch.Tensor],
+                     page_size: int) -> PagedWrite:
+    """(rows, page ids, in-page offsets) of the slots that write their new
+    k/v into a shared pool this step (``attention.py:229-246``).
+
+    Row b writes at offset ``pos[b] % page_size`` of page
+    ``page_table[b, pos[b] // page_size]`` unless it is inactive, its page
+    is unowned (-1) or it is past the table's capacity.  The reference
+    sends such rows to an out-of-bounds sentinel that the scatter drops;
+    torch has no drop mode, and a clamped index could be the very entry
+    another slot writes in the same step, so the writing rows are selected
+    instead.  The selection costs one device-to-host sync per call, which
+    ``DenseLM.decode`` makes once per fused step for all layers.
+    """
+    b, max_pages = page_table.shape
+    page = pos // page_size
+    pid = page_table[torch.arange(b, device=pos.device),
+                     page.clamp_max(max_pages - 1)].long()
+    ok = (pid >= 0) & (page < max_pages)
+    if active is not None:
+        ok = ok & active
+    rows = ok.nonzero().squeeze(1)
+    return rows, pid[rows], (pos % page_size)[rows]
+
+
 def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                      cfg: ModelConfig, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
-                     active: Optional[torch.Tensor] = None
+                     active: Optional[torch.Tensor] = None,
+                     page_table: Optional[torch.Tensor] = None,
+                     paged_write: Optional[PagedWrite] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Decode ``x`` (B, s_q, d) against a dense (B, S_max, KV, D) cache.
+    """Decode ``x`` (B, s_q, d) against a KV cache.
 
     ``pos`` is a 0-dim tensor (every row at one position) or a (B,) vector
     (each slot at its own depth).  The new k/v are written into the cache
@@ -167,25 +201,50 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     tensors are returned.  Mask convention: after the write a row at
     position p has p + 1 valid entries, and cache row j attends iff
     j < p + 1 (``attention.py:283-284``).
+
+    Cache layouts: dense (``page_table`` None) ``(B, S_max, KV, D)`` rows;
+    paged (``page_table`` (B, max_pages) int32, -1 = unowned) shared
+    ``(n_pages, page_size, KV, D)`` pools, row b's token j at page
+    ``page_table[b, j // page_size]``, offset ``j % page_size``.  Paged
+    decode is per-slot single-token only (the fused engine step); its
+    writing rows are ``paged_write`` when the caller computed them once
+    for all layers (:func:`paged_write_rows`), else computed here.
     """
     b, s_q = x.shape[0], x.shape[1]
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = h // kvh
     per_slot = pos.dim() == 1
     q, k, v = _project_qkv(params, x, cfg)
-    _write_cache(cache_k, k, pos, active)
-    _write_cache(cache_v, v, pos, active)
+    if page_table is not None:
+        if not per_slot or s_q != 1:
+            raise ValueError(f"paged decode is per-slot single-token only "
+                             f"(got pos dim {pos.dim()}, s_q {s_q})")
+        rows, pages, offs = paged_write or paged_write_rows(
+            page_table, pos, active, cache_k.shape[1])
+        cache_k[pages, offs] = k[rows, 0].to(cache_k.dtype)
+        cache_v[pages, offs] = v[rows, 0].to(cache_v.dtype)
+    else:
+        _write_cache(cache_k, k, pos, active)
+        _write_cache(cache_v, v, pos, active)
 
     use_kernel = wants_kernel(cfg.decode_backend, "decode_backend",
                               DECODE_BACKENDS)
     if use_kernel and s_q == 1:
         lengths = (pos + 1 if per_slot else (pos + 1).expand(b))
-        ctx = flash_decode(q[:, 0], cache_k, cache_v,
-                           lengths.to(torch.int32).contiguous())[:, None]
+        lengths = lengths.to(torch.int32).contiguous()
+        if page_table is not None:
+            ctx = flash_decode_paged(q[:, 0], cache_k, cache_v, page_table,
+                                     lengths)[:, None]
+        else:
+            ctx = flash_decode(q[:, 0], cache_k, cache_v, lengths)[:, None]
     else:
-        s_max = cache_k.shape[1]
+        kc, vc = cache_k, cache_v
+        if page_table is not None:
+            kc = gather_pages(cache_k, page_table)
+            vc = gather_pages(cache_v, page_table)
+        s_max = kc.shape[1]
         qg = q.reshape(b, s_q, kvh, g, d) * (1.0 / math.sqrt(d))
-        s = torch.einsum("bqkgd,bjkd->bkgqj", qg, cache_k).float()
+        s = torch.einsum("bqkgd,bjkd->bkgqj", qg, kc).float()
         offs = torch.arange(s_q, device=x.device)
         counts = (pos[:, None] + offs[None, :] if per_slot
                   else (pos + offs)[None, :]) + 1  # valid-entry counts
@@ -193,7 +252,7 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                  < counts[:, :, None])  # (B or 1, s_q, S_max)
         s = s.masked_fill(~valid[:, None, None], NEG_INF)
         p = torch.softmax(s, dim=-1)
-        ctx = torch.einsum("bkgqj,bjkd->bkgqd", p.to(cache_v.dtype), cache_v)
+        ctx = torch.einsum("bkgqj,bjkd->bkgqd", p.to(vc.dtype), vc)
         ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, s_q, h, d)
     out = torch.einsum("bshk,hkd->bsd", ctx, params["wo"])
     return out, cache_k, cache_v

@@ -150,27 +150,40 @@ class DenseLM:
         first new position, as the reference's ``[:, 0]``; new cache).
 
         The k/v leaves are written in place and returned as the same
-        tensors.  A slot cache also carries ``active`` (per-slot
-        occupancy): inactive slots freeze ``pos`` and keep their rows.
+        tensors.  A slot cache may also carry ``active`` (per-slot
+        occupancy: inactive slots freeze ``pos`` and keep their rows) and
+        ``page_table`` (the k/v leaves are shared page pools, see
+        serve/paging.py); both pass through unchanged.
         """
         cfg = self.cfg
         pos = cache["pos"]
         active = cache.get("active")
+        page_table = cache.get("page_table")
+        # a paged step selects its writing rows once for all layers
+        write = (attn_mod.paged_write_rows(page_table, pos, active,
+                                           cache["k"].shape[2])
+                 if page_table is not None else None)
         x = embed_inputs(params, tokens, cfg, pos)
         for i, lp in enumerate(params["layers"]):
             h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
             a, _, _ = attn_mod.decode_attention(
                 lp["attn"], h, cfg, cache["k"][i], cache["v"][i], pos,
-                active=active)
+                active=active, page_table=page_table, paged_write=write)
             x = x + a
             h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
             x = x + mlp_apply(lp["mlp"], h, cfg.mlp)
         logits = _logits(params, x[:, :1, :], cfg)[:, 0]
+        if page_table is not None:
+            cap = page_table.shape[1] * cache["k"].shape[2]  # pages x size
+        else:
+            cap = cache["k"].shape[2]  # dense per-slot row length
         new_pos = advance_pos(pos, tokens.shape[1], active,
-                              limit=cache["k"].shape[2] if pos.dim() else None)
+                              limit=cap if pos.dim() else None)
         out = {"k": cache["k"], "v": cache["v"], "pos": new_pos}
         if active is not None:
             out["active"] = active
+        if page_table is not None:
+            out["page_table"] = page_table
         return logits, out
 
     def cache_shapes(self, batch_size: int, seq_len: int) -> Dict[str, tuple]:

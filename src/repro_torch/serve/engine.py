@@ -1,18 +1,24 @@
 """EngineCore / Replica / InferenceEngine: continuous batching on one device
-(``repro/serve/engine.py``, role "both", dense cache).
+(``repro/serve/engine.py``).
 
 * :class:`EngineCore` — the device layer: prefill, fused decode and
-  sampling over the slot cache.  ``prefill_batch`` runs one shared
-  ``(k, bucket)`` prefill, replays each request's sub-bucket remainder
-  through single-token decode steps, inserts the rows, and reports a
-  :class:`PrefillOutcome` per row.
+  sampling over the slot cache, dense or paged.  ``prefill_batch`` runs one
+  shared ``(k, bucket)`` prefill, replays each request's sub-bucket
+  remainder through single-token decode steps, inserts the rows into a
+  target core, and reports a :class:`PrefillOutcome` per row.
 * :class:`Replica` — slot ownership, retirement and containment around
-  one core: admit, one fused decode step over all slots, retire, backfill.
+  one core: admit, one fused decode step over all slots, retire, backfill;
+  live migration of a slot to another replica.  Roles: "both" (the
+  default), "decode" (admission prefills run on ``prefill_source``'s core
+  and the rows land here) and "prefill" (a core with no slots, serving
+  decode-role partners).
 * :class:`InferenceEngine` — the public name of a single replica.
 
-The router, disaggregated roles, paging and slot migration come with later
-slices.  Greedy token streams equal the reference engine's on the same
-weights (tests/test_torch_serve.py).
+The router over replicas is serve/router.py.  Greedy token streams equal
+the reference engine's on the same weights (tests/test_torch_serve.py),
+and each request's stream, greedy or sampled, is a function of its own
+prompt, sampling parameters and ``(seed, uid)`` only, so it is the same
+under any router, policy or role split (tests/test_torch_router.py).
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ from repro_torch.serve.policies import make_policy
 from repro_torch.serve.scheduler import (Scheduler, SchedulerConfig,
                                          prefill_split)
 from repro_torch.serve.state import SlotDecodeState
-from repro_torch.serve.types import GenerationResult, PrefillOutcome, Request
+from repro_torch.serve.types import (GenerationResult, PrefillOutcome,
+                                     ReplicaTelemetry, Request)
 
 OnToken = Callable[[int, int], None]  # (request uid, token id)
 
@@ -72,15 +79,37 @@ class EngineStats:
             np.fromiter(self.step_times, np.float64), p))
 
 
+def build_weights(arch: str, use_reduced: bool, seed: int,
+                  device: torch.device, decode_backend: Optional[str] = None,
+                  attn_backend: Optional[str] = None):
+    """(model, fp32 params drawn from ``seed`` on ``device``) of a preset,
+    with the backends overridden where given; replicas share them."""
+    from repro_torch.configs import get_arch, reduced as reduce_cfg
+    mcfg = get_arch(arch)
+    mcfg = reduce_cfg(mcfg) if use_reduced else mcfg
+    if decode_backend:
+        mcfg = mcfg.replace(decode_backend=decode_backend)
+    if attn_backend:
+        mcfg = mcfg.replace(attn_backend=attn_backend)
+    params = model_zoo.init_params(
+        mcfg, torch.Generator().manual_seed(seed), device)
+    return model_zoo.build_model(mcfg), params
+
+
 class EngineCore:
     """The device layer: model, parameters and the slot cache on one device.
 
     Step times are host wall-clock around work that ends in a copy of the
-    sampled tokens to the host, so they include the device's time.
+    sampled tokens to the host, so they include the device's time.  A
+    paged core admits only what ``reserve`` (the page budget) accepts.  A
+    ``role="prefill"`` core owns no slot cache: its rows land in another
+    core's, through the dense model format.
     """
 
     def __init__(self, model, params, cfg: Optional[SchedulerConfig] = None,
-                 device="cuda"):
+                 device="cuda", role: str = "both"):
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"unknown role {role!r}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # serve in full fp32, as the reference does: no TF32 anywhere
@@ -89,12 +118,19 @@ class EngineCore:
         self.model = model
         self.params = params
         self.cfg = cfg or SchedulerConfig()
-        self.state = SlotDecodeState(model)
+        if self.cfg.paged and role != "prefill":
+            from repro_torch.serve.paging import PagedDecodeState
+            self.state = PagedDecodeState(model, self.cfg.page_size,
+                                          self.cfg.resolved_n_pages)
+            self.reserve = self.state.try_reserve
+        else:
+            self.state = SlotDecodeState(model)
+            self.reserve = None
         self.ladder = self.cfg.ladder()
         self.vocab = model.cfg.vocab_size
-        self.cache = self.state.init_slots(self.cfg.n_slots,
-                                           self.cfg.cache_len,
-                                           params["embed"].dtype, self.device)
+        self.cache = None if role == "prefill" else self.state.init_slots(
+            self.cfg.n_slots, self.cfg.cache_len, params["embed"].dtype,
+            self.device)
 
     def _tensor(self, x, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -114,10 +150,15 @@ class EngineCore:
             self._tensor([sp.top_p], torch.float32), self.vocab)[0])
 
     # -- admission prefill ---------------------------------------------------
-    def prefill_batch(self, admissions) -> List[PrefillOutcome]:
+    def prefill_batch(self, admissions, target: Optional["EngineCore"] = None
+                      ) -> List[PrefillOutcome]:
         """Prefill same-split requests as one ``(k, bucket)`` call, replay
-        each ragged remainder, insert the surviving rows, sample each first
-        token.  Returns one :class:`PrefillOutcome` per admission row."""
+        each ragged remainder, insert the surviving rows into ``target``
+        (default: this core), sample each first token.  Returns one
+        :class:`PrefillOutcome` per admission row.  The prefill-to-decode
+        handoff of a role split is ``prefill_core.prefill_batch(adm,
+        target=decode_core)``."""
+        target = target if target is not None else self
         reqs = [r for _, r in admissions]
         outcomes = [PrefillOutcome(slot=s, request=r) for s, r in admissions]
         try:
@@ -147,9 +188,8 @@ class EngineCore:
             live = list(range(len(reqs)))
             stacked = kcache
         if stacked is not None:
-            self.cache = self.state.insert_many(
-                self.cache, self._tensor([outcomes[i].slot for i in live]),
-                stacked)
+            target.insert_rows(
+                self._tensor([outcomes[i].slot for i in live]), stacked)
         for i in live:
             sp = reqs[i].sampling
             gen = sampling.request_generator(sp.seed, reqs[i].uid)
@@ -161,8 +201,18 @@ class EngineCore:
                 outcomes[i].error = "sample"
         return outcomes
 
+    # -- slot surgery --------------------------------------------------------
+    def insert_rows(self, slots: torch.Tensor, stacked) -> None:
+        """Insert stacked model-format rows into ``slots``."""
+        self.cache = self.state.insert_many(self.cache, slots, stacked)
+
     def evict(self, slot: int) -> None:
+        """Clear one slot (and free its pages and reservation when paged)."""
         self.cache = self.state.evict(self.cache, slot)
+
+    def gather(self, slot: int):
+        """Model-format row of one slot (the migration export)."""
+        return self.state.gather(self.cache, slot)
 
     # -- the fused decode step (device half) --------------------------------
     def decode_step(self, toks: np.ndarray, uniforms: np.ndarray,
@@ -180,15 +230,50 @@ class EngineCore:
             self._tensor(temps, torch.float32), self._tensor(topk),
             self._tensor(topp, torch.float32), self.vocab).cpu().numpy()
 
+    @property
+    def free_pages(self) -> int:
+        """Free pages of the paged pool; -1 for a dense state."""
+        alloc = getattr(self.state, "alloc", None)
+        return alloc.free_page_count if alloc is not None else -1
+
 
 class Replica:
-    """Slot ownership + retirement + containment around one EngineCore."""
+    """Slot ownership + retirement + containment around one EngineCore.
+
+    Roles: "both" (one core prefills and decodes), "decode" (admission
+    prefills run on ``prefill_source``'s core and the rows land here) and
+    "prefill" (a core only: no scheduler and no slots).
+    """
 
     def __init__(self, model, params, cfg: Optional[SchedulerConfig] = None,
-                 device="cuda"):
+                 device="cuda", role: str = "both",
+                 prefill_source: Optional["Replica"] = None, name: str = ""):
         self.cfg = cfg or SchedulerConfig()
+        self.role = role
+        self.name = name or role
         self.stats = EngineStats()
-        self.core = EngineCore(model, params, self.cfg, device=device)
+        self.core = EngineCore(model, params, self.cfg, device=device,
+                               role=role)
+        # optional per-step metrics sink (launch/serve.py --metrics-jsonl)
+        self.on_step_metrics: Optional[Callable[[dict], None]] = None
+        self.prefill_replica: Optional["Replica"] = None
+        if role == "prefill":
+            if prefill_source is not None:
+                raise ValueError("a prefill-role replica cannot have a "
+                                 "prefill_source")
+            self.scheduler = None
+            self.policy = None
+            self.prefill_core = self.core
+            return
+        if prefill_source is not None:
+            if role != "decode":
+                raise ValueError("prefill_source requires role='decode'")
+            self.prefill_replica = prefill_source
+            self.prefill_core = prefill_source.core
+        else:
+            if role == "decode":
+                raise ValueError("role='decode' requires a prefill_source")
+            self.prefill_core = self.core
         self.scheduler = Scheduler(self.cfg)
         self.policy = make_policy(self.cfg)
         n = self.cfg.n_slots
@@ -206,22 +291,18 @@ class Replica:
                   attn_backend: Optional[str] = None,
                   device="cuda") -> "Replica":
         """Replica over random fp32 weights drawn from ``seed``."""
-        from repro_torch.configs import get_arch, reduced as reduce_cfg
         dev = resolve_device(device)
-        mcfg = get_arch(arch)
-        mcfg = reduce_cfg(mcfg) if use_reduced else mcfg
-        if decode_backend:
-            mcfg = mcfg.replace(decode_backend=decode_backend)
-        if attn_backend:
-            mcfg = mcfg.replace(attn_backend=attn_backend)
-        model = model_zoo.build_model(mcfg)
-        params = model_zoo.init_params(
-            mcfg, torch.Generator().manual_seed(seed), dev)
+        model, params = build_weights(arch, use_reduced, seed, dev,
+                                      decode_backend, attn_backend)
         return cls(model, params, cfg=cfg, device=dev)
 
     @property
     def model(self):
         return self.core.model
+
+    @property
+    def state(self):
+        return self.core.state
 
     @property
     def params(self):
@@ -234,7 +315,8 @@ class Replica:
     # -- admission -----------------------------------------------------------
     def _admit_batch(self, admissions, on_token: Optional[OnToken]) -> None:
         t0 = time.perf_counter()
-        outcomes = self.core.prefill_batch(admissions)
+        outcomes = self.prefill_core.prefill_batch(admissions,
+                                                   target=self.core)
         if all(o.error == "prefill" for o in outcomes):
             for o in outcomes:
                 self.core.evict(o.slot)
@@ -248,6 +330,12 @@ class Replica:
                                          for o in outcomes if not o.error)
         self.stats.admitted += n_ok
         self.stats.generated_tokens += n_ok
+        if self.prefill_replica is not None:
+            # the prefill partner did the device work: mirror its accounting
+            pstats = self.prefill_replica.stats
+            pstats.prefill_s += dt
+            pstats.prefill_tokens += sum(o.request.prompt_len
+                                         for o in outcomes if not o.error)
         for o in outcomes:
             if o.error:
                 self.core.evict(o.slot)
@@ -275,7 +363,8 @@ class Replica:
 
     def admit(self, on_token: Optional[OnToken] = None) -> bool:
         """One admission round; False when nothing was admissible."""
-        adm = self.policy.select(self.scheduler, self.cfg.prefill_batch)
+        adm = self.policy.select(self.scheduler, self.cfg.prefill_batch,
+                                 reserve=self.core.reserve)
         if not adm:
             return False
         self._admit_batch(adm, on_token)
@@ -317,6 +406,8 @@ class Replica:
                 continue
             if reason:
                 self._retire(slot, reason)
+        if self.on_step_metrics is not None:
+            self.on_step_metrics(self.metrics_row(dt))
 
     # -- run loop ------------------------------------------------------------
     def pump(self, on_token: Optional[OnToken] = None) -> bool:
@@ -346,6 +437,61 @@ class Replica:
     def take_finished(self) -> List[GenerationResult]:
         done, self.scheduler.finished = self.scheduler.finished, []
         return done
+
+    # -- migration -----------------------------------------------------------
+    def migrate_slot_to(self, slot: int, other: "Replica") -> int:
+        """Move one active slot, device row and host bookkeeping (its
+        sampling generator included), onto ``other``; returns the
+        destination slot.  A paged destination reserves the request's pages
+        first and raises if it cannot.  The stream continues on the
+        destination as it would have in place."""
+        from repro_torch.distributed.collectives import migrate_row
+        if slot not in self.scheduler.active:
+            raise KeyError(f"slot {slot} is not active")
+        if not other.scheduler.free:
+            raise RuntimeError("destination replica has no free slot")
+        st = self.scheduler.active[slot]
+        dst_slot = other.scheduler.free[-1]
+        if other.core.reserve is not None and \
+                not other.core.reserve(dst_slot, st.request):
+            raise RuntimeError("destination replica cannot reserve pages")
+        other.scheduler.free.pop()
+        self.core.cache, other.core.cache = migrate_row(
+            self.core.state, self.core.cache, slot,
+            other.core.state, other.core.cache, dst_slot,
+            cache_len=other.cfg.cache_len)
+        del self.scheduler.active[slot]
+        self.scheduler.free.append(slot)
+        other.scheduler.active[dst_slot] = st
+        return dst_slot
+
+    # -- telemetry -----------------------------------------------------------
+    def telemetry(self) -> ReplicaTelemetry:
+        """Admission telemetry for the router's routing score."""
+        return ReplicaTelemetry(
+            name=self.name, queue_depth=len(self.scheduler.pending),
+            active=len(self.scheduler.active),
+            free_slots=len(self.scheduler.free),
+            free_pages=self.core.free_pages,
+            p95_step_s=self.stats.latency_percentile(95))
+
+    def metrics_row(self, step_s: float) -> dict:
+        """One JSONL row of per-step metrics (``--metrics-jsonl``)."""
+        s = self.stats
+        return {
+            "replica": self.name,
+            "decode_step": s.decode_steps,
+            "step_s": step_s,
+            "active": len(self.scheduler.active),
+            "queue_depth": len(self.scheduler.pending),
+            "free_slots": len(self.scheduler.free),
+            "free_pages": self.core.free_pages,
+            "generated_tokens": s.generated_tokens,
+            "admitted": s.admitted,
+            "slot_errors": s.slot_errors,
+            "p50_s": s.latency_percentile(50),
+            "p95_s": s.latency_percentile(95),
+        }
 
     def reset_stats(self) -> EngineStats:
         old, self.stats = self.stats, EngineStats()
