@@ -26,7 +26,18 @@ weights from a seed:
   of ``predict_trajectory``, the launch counts of the forward and the three
   backward flash-attention kernels, every gradient leaf of two batches and
   the first 8 steps against the same run with plain attention on the same
-  card.
+  card;
+* RWKV-6: the WKV-6 forward and backward kernels against their plain
+  versions (and the backward against autograd through the plain forward)
+  at every shape the RWKV paths give them, then full-depth, full-width
+  rwkv6-7b served from 8 slots (launch counts, greedy streams against the
+  plain reference backend, the router with a paged replica and a
+  migration each way), and rwkv6-7b at full width cut to 4 layers trained
+  for 20 SLW steps (finite losses, the plans of ``predict_trajectory``,
+  launch counts, every gradient leaf of two batches and the first 8
+  steps' losses against the reference backend, and a planted fault in
+  the backward that the gradient check must catch).  Their weights are drawn
+  on the card from a CUDA generator.
 
 Phases print one line each.  The second-to-last line lists each kernel
 with its error, times and bound; the last line is
@@ -156,17 +167,23 @@ def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
                        f"{attempts} timed runs")
 
 
-def times(kernel, plain, library=None) -> dict:
+def times(kernel, plain, library=None, plain_queued: bool = True) -> dict:
     """``ms``, ``plain_ms``, ``library_ms``: device ms of one call of the
     kernel, its plain version and the library call (:func:`device_ms`;
     None where no one PyTorch call computes the same function).
     ``*call_ms``: CUDA-event ms per call of each with nothing queued ahead,
     which the host's rate of issue bounds where it is slower than the
-    card."""
+    card.  With ``plain_queued`` False the plain version is timed by
+    :func:`call_ms` alone: one that makes hundreds of launches a call fills
+    the card's launch queue behind the spin kernel, so the host waits for
+    the card; its large operations keep the card the slower side."""
     lib = library is not None
-    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain, 10),
+    plain_call = call_ms(plain, 10 if plain_queued else 3,
+                         5 if plain_queued else 1)
+    return {"ms": device_ms(kernel),
+            "plain_ms": device_ms(plain, 10) if plain_queued else plain_call,
             "library_ms": device_ms(library) if lib else None,
-            "call_ms": call_ms(kernel), "plain_call_ms": call_ms(plain, 10),
+            "call_ms": call_ms(kernel), "plain_call_ms": plain_call,
             "library_call_ms": call_ms(library) if lib else None}
 
 
@@ -1044,6 +1061,694 @@ def phase_train_parity(train: dict) -> None:
     emit("train_parity", steps=n, max_rel_err=rel, rtol=PARITY_RTOL,
          seqlens=plain.seqlen_history, batches=plain.batch_history)
 
+# ---------------------------------------------------------------------------
+# RWKV-6: the WKV-6 kernels, serving and training rwkv6-7b at full width
+# ---------------------------------------------------------------------------
+
+RWKV_H, RWKV_D, RWKV_CHUNK = 64, 64, 64  # rwkv6-7b: 64 heads of 64
+# training: rwkv6-7b at full width cut to 4 layers, global batch 8 of
+# sequences of 1024, SLW linear from 8 over 12 steps, batch warmup from 4,
+# 20 steps, one eval of 8 sequences
+RWKV_LAYERS, RWKV_B, RWKV_STEPS, RWKV_EVAL = 4, 8, 20, 8
+# the kernels against their plain versions, fp32: each output within this
+# fraction of the plain output's largest entry (fixed before the first run:
+# fp32 sums over up to 64 keys and 64 channels in another order)
+WKV_RTOL = 1e-4
+# log_w near -54.6 a token (the floor of -exp(clip(w, -8, 4))): cumulative
+# log-decays reach -3,500 in a chunk, whose fp32 ulp is 2.4e-4, and the
+# pairwise exponent is a difference of two of them; two summation orders
+# then differ by up to ~1e-3 in a pair weight near 1
+WKV_FAST_RTOL = 2e-3
+FAST_DECAY = -54.6
+# the RWKV gradients (see :func:`_compare_rwkv_grads`), kernel path against
+# the reference backend on the card: every leaf of two batches within
+# GRAD_RTOL of the leaf's largest entry at the norms' eps raised to
+# RWKV_GRAD_EPS, where the fp32 gradient is well-conditioned; at the
+# model's own eps and at those of RWKV_GRAD_SWEEP only reported.  At the
+# model's eps no fixed limit both passes the kernels and catches a wrong
+# backward: on the H100 (PERF.md, §6) the reference itself moved 4.1e-3
+# and 4.8e-2 between card and host there, and the kernel path's distance
+# to it on the trained batch read 2.4e-2, more than the planted fault's
+# 1e-2; at eps 1 the kernel path read at most 1.1e-5 and the reference's
+# card-vs-host spread 6.6e-6
+RWKV_GRAD_EPS = 1.0
+RWKV_GRAD_SWEEP = (1e-3, 1e-1, 10.0)
+# a planted fault the check at RWKV_GRAD_EPS must catch: dv x (1 + this)
+# out of the backward kernel
+RWKV_FAULT = 1e-2
+
+
+def _wkv_inputs(b, s, dtype, seed, decay=None):
+    """r, k, v (B, 64, S, 64) in ``dtype``; log_w fp32, -exp(N(0, 0.5^2))
+    (the model at init gives -1) or ``decay`` plus small noise; u (64, 64)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, RWKV_H, s, RWKV_D)
+    r, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    noise = torch.randn(shape, device="cuda", generator=gen)
+    lw = -torch.exp(0.5 * noise) if decay is None else decay + 0.01 * noise
+    u = 0.5 * torch.randn(RWKV_H, RWKV_D, device="cuda", generator=gen)
+    return r, k, v, lw, u
+
+
+def _rel_err(a, ref, scale=None) -> float:
+    """max |a - ref| over ``scale`` (default max |ref|)."""
+    scale = ref.float().abs().max().item() if scale is None else scale
+    return (a.float() - ref.float()).abs().max().item() / max(scale, 1e-30)
+
+
+def _wkv_pairs(q: int) -> int:
+    return q * (q - 1) // 2
+
+
+def wkv6_fwd_work(b, s, q, elt) -> tuple:
+    """(bytes, operations) of one forward call without carries at (B, 64,
+    S, 64), chunk q: r, k, v, y in ``elt`` bytes and log_w in fp32 read or
+    written once, u read and the fp32 state written once; per chunk 4
+    operations and
+    one exp per pairwise term (Q (Q - 1) / 2 x D), Q D ((Q - 1) / 2 + 1 +
+    D) multiply-adds for y and Q D^2 for the state update."""
+    h, d, nc = RWKV_H, RWKV_D, s // q
+    nbytes = (4 * b * h * s * d * elt + b * h * s * d * 4 + h * d * 4
+              + b * h * d * d * 4)
+    per_chunk = (5 * _wkv_pairs(q) * d + 2 * q * d * ((q - 1) / 2 + 1 + d)
+                 + 2 * q * d * d)
+    return nbytes, b * h * nc * per_chunk
+
+
+def wkv6_bwd_work(b, s, q) -> tuple:
+    """(bytes, operations) of one backward call, fp32: r, k, v, log_w, dy,
+    the carries, dstate, u read once, dr, dk, dv, d_log_w, du written once;
+    per chunk p (Q^2 D multiply-adds), the scores and dr, dk's pairwise sums
+    (4 + 5 + 5 operations and one exp per pairwise term each), the state
+    terms of dr and dk, dv and the cotangent update (Q D^2, Q D^2,
+    Q D (D + (Q - 1) / 2), Q D^2 multiply-adds)."""
+    h, d, nc = RWKV_H, RWKV_D, s // q
+    nbytes = (5 * b * h * s * d * 4 + b * h * (nc + 1) * d * d * 4
+              + h * d * 4 + 4 * b * h * s * d * 4 + b * h * d * 4)
+    per_chunk = (2 * q * q * d + 14 * _wkv_pairs(q) * d + 6 * q * d * d
+                 + 2 * q * d * (d + (q - 1) / 2))
+    return nbytes, b * h * nc * per_chunk
+
+
+def check_wkv6_fwd(r, k, v, lw, u, chunk, what, rtol=WKV_RTOL) -> dict:
+    """{y, state, carries}: relative errors of the forward kernel against
+    its plain version on the same inputs.  fp32 y within ``rtol`` of max
+    |y|; bf16 y within :func:`bf16_tolerance` plus that; the fp32 state and
+    carries within ``rtol``.  Fails on any non-finite output."""
+    from repro_torch.kernels.rwkv6 import wkv6_fwd, wkv6_fwd_plain
+    got = wkv6_fwd(r, k, v, lw, u, chunk=chunk, return_carries=True)
+    ref = wkv6_fwd_plain(r, k, v, lw, u, chunk=chunk, return_carries=True)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t.float()).all()) for t in got),
+          f"wkv6_fwd {what}: non-finite output")
+    errs = {}
+    for name, a, e in zip(("y", "state", "carries"), got, ref):
+        scale = e.float().abs().max().item()
+        tol = rtol * scale
+        if name == "y" and a.dtype == torch.bfloat16:
+            tol = tol + bf16_tolerance(a, e) - 2e-5
+        check(bool(((a.float() - e.float()).abs() <= tol).all()),
+              f"wkv6_fwd {name} {what}: {_rel_err(a, e)}")
+        errs[name] = _rel_err(a, e)
+    return errs
+
+
+def _wkv_kernel_shape(b, s):
+    """(B, S, chunk) the forward kernel sees for a (B, S) input: the chunk
+    clamped to S and S padded to a multiple of it (``chunk_padding``)."""
+    from repro_torch.kernels import chunk_padding
+    q, pad = chunk_padding(s, RWKV_CHUNK)
+    return b, s + pad, q
+
+
+def phase_wkv6_fwd(prefills, train_shapes) -> tuple:
+    """Holds the forward kernel against its plain version at the serving
+    prefills (B 1, S 256/384/512), every (batch, S) of the RWKV training
+    plan and its eval, one bf16 case, S below a chunk, S off a chunk
+    multiple (through the padding wrapper), and log_w near -54.6; times it
+    at the largest prefill and at the full-length training batch."""
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_fwd, wkv6_fwd_plain
+    errs, checked = {}, set()
+    for i, (b, s) in enumerate(sorted(set(prefills) | set(train_shapes))):
+        kb, ks, q = _wkv_kernel_shape(b, s)
+        errs[f"{b}x{s}"] = check_wkv6_fwd(*_wkv_inputs(kb, ks, torch.float32,
+                                                       i), q, f"{b}x{s}")
+        checked.add((kb, ks, q))
+    errs["bf16_2x256"] = check_wkv6_fwd(
+        *_wkv_inputs(2, 256, torch.bfloat16, 50), RWKV_CHUNK, "bf16")
+    errs["short_2x40"] = check_wkv6_fwd(*_wkv_inputs(2, 40, torch.float32, 51),
+                                        40, "S < chunk")
+    errs["fast_decay_1x256"] = check_wkv6_fwd(
+        *_wkv_inputs(1, 256, torch.float32, 52, FAST_DECAY), RWKV_CHUNK,
+        "log_w near -54.6", rtol=WKV_FAST_RTOL)
+    # S = 100 through the wrapper: zero-padded to 128, sliced back
+    r, k, v, lw, u = _wkv_inputs(2, 100, torch.float32, 53)
+    y, state = wkv6(r, k, v, lw, u, chunk=RWKV_CHUNK)
+    pad = [F.pad(t, (0, 0, 0, 28)) for t in (r, k, v, lw)]
+    ry, rstate = wkv6_fwd_plain(*pad, u, chunk=RWKV_CHUNK)
+    torch.cuda.synchronize()
+    errs["ragged_2x100"] = {"y": _rel_err(y, ry[:, :, :100]),
+                            "state": _rel_err(state, rstate)}
+    check(max(errs["ragged_2x100"].values()) <= WKV_RTOL, "wkv6 S = 100")
+
+    timing = {}
+    for key, b, s in (("serve_1x512", 1, max(s for _, s in prefills)),
+                      ("train_8x1024", RWKV_B, S_TRAIN)):
+        r, k, v, lw, u = _wkv_inputs(b, s, torch.float32, 60)
+        nbytes, ops = wkv6_fwd_work(b, s, RWKV_CHUNK, 4)
+        t_bound, by = bound(nbytes, ops, torch.float32)
+        timing[key] = {
+            "max_abs_err": (wkv6_fwd(r, k, v, lw, u, chunk=RWKV_CHUNK)[0]
+                            - wkv6_fwd_plain(r, k, v, lw, u,
+                                             chunk=RWKV_CHUNK)[0]
+                            ).abs().max().item(),
+            **times(lambda: wkv6_fwd(r, k, v, lw, u, chunk=RWKV_CHUNK),
+                    lambda: wkv6_fwd_plain(r, k, v, lw, u,
+                                           chunk=RWKV_CHUNK),
+                    plain_queued=False),
+            "library_note": "no one PyTorch call computes WKV-6",
+            "bytes": nbytes, "operations": ops, "bound_ms": t_bound,
+            "bound_by": by}
+        del r, k, v, lw
+    torch.cuda.empty_cache()
+    emit("wkv6_fwd", rel_err=errs, timing=timing,
+         shape=f"H={RWKV_H} D={RWKV_D} chunk<={RWKV_CHUNK}")
+    return timing, checked
+
+
+def check_wkv6_bwd(r, k, v, lw, u, chunk, what, rtol=WKV_RTOL) -> dict:
+    """Relative errors of the backward kernel's dr, dk, dv, d_log_w and du
+    against the plain reverse scan on the same inputs, carries and nonzero
+    cotangents on y and on the final state, and against torch.autograd
+    through the plain forward.  Each within
+    ``rtol`` of the reference's largest entry; d_log_w against the largest
+    |r dr| and |k dk| as well, since it is a suffix sum of differences of
+    such terms (under fast decay it is ~0 while they are not)."""
+    from repro_torch.kernels.rwkv6 import (wkv6_bwd, wkv6_bwd_plain,
+                                           wkv6_fwd_plain)
+    b, h, s, d = r.shape
+    gen = torch.Generator(device="cuda").manual_seed(s + 7)
+    dy = torch.randn(b, h, s, d, device="cuda", generator=gen)
+    dstate = torch.randn(b, h, d, d, device="cuda", generator=gen)
+    _, _, carries = wkv6_fwd_plain(r, k, v, lw, u, chunk=chunk,
+                                   return_carries=True)
+    got = wkv6_bwd(r, k, v, lw, u, carries, dy, dstate, chunk=chunk)
+    refs = {"plain": wkv6_bwd_plain(r, k, v, lw, u, carries, dy, dstate,
+                                    chunk=chunk)}
+    del carries
+    xs = [t.detach().clone().requires_grad_() for t in (r, k, v, lw, u)]
+    y, state = wkv6_fwd_plain(*xs, chunk=chunk)
+    refs["autograd"] = torch.autograd.grad(
+        (y * dy).sum() + (state * dstate).sum(), xs)
+    del y, state, xs
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"wkv6_bwd {what}: non-finite output")
+    errs = {}
+    for src, ref in refs.items():
+        ref = list(ref)
+        if src == "plain":
+            ref[4] = ref[4].sum(dim=0)
+        dlw_scale = max(ref[3].abs().max().item(),
+                        (r.float() * ref[0]).abs().max().item(),
+                        (k.float() * ref[1]).abs().max().item())
+        for name, a, e, scale in zip(
+                ("dr", "dk", "dv", "dlw", "du"), got[:4] + (got[4].sum(0),),
+                ref, (None, None, None, dlw_scale, None)):
+            err = _rel_err(a, e, scale)
+            check(err <= rtol, f"wkv6_bwd {name} {what} vs {src}: {err}")
+            errs[f"{name}_vs_{src}"] = err
+    return errs
+
+
+def phase_wkv6_bwd(train_shapes) -> tuple:
+    """Holds the backward kernel against the plain reverse scan and against
+    autograd through the plain forward at every (batch, S) of the training
+    plan, and at log_w near -54.6; times it at the full-length batch."""
+    from repro_torch.kernels.rwkv6 import (wkv6_bwd, wkv6_bwd_plain,
+                                           wkv6_fwd_plain)
+    errs, checked = {}, set()
+    for i, (b, s) in enumerate(sorted(train_shapes)):
+        kb, ks, q = _wkv_kernel_shape(b, s)
+        errs[f"{b}x{s}"] = check_wkv6_bwd(
+            *_wkv_inputs(kb, ks, torch.float32, 100 + i), q, f"{b}x{s}")
+        checked.add((kb, ks, q))
+        torch.cuda.empty_cache()
+    errs["fast_decay_1x256"] = check_wkv6_bwd(
+        *_wkv_inputs(1, 256, torch.float32, 99, FAST_DECAY), RWKV_CHUNK,
+        "log_w near -54.6", rtol=WKV_FAST_RTOL)
+    b, s = RWKV_B, S_TRAIN
+    r, k, v, lw, u = _wkv_inputs(b, s, torch.float32, 61)
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    dy = torch.randn(r.shape, device="cuda", generator=gen)
+    dstate = torch.randn(b, RWKV_H, RWKV_D, RWKV_D, device="cuda",
+                         generator=gen)
+    _, _, carries = wkv6_fwd_plain(r, k, v, lw, u, chunk=RWKV_CHUNK,
+                                   return_carries=True)
+    args = (r, k, v, lw, u, carries, dy, dstate)
+    nbytes, ops = wkv6_bwd_work(b, s, RWKV_CHUNK)
+    t_bound, by = bound(nbytes, ops, torch.float32)
+    timing = {"train_8x1024": {
+        "max_abs_err": max(
+            (a - e).abs().max().item() for a, e in zip(
+                wkv6_bwd(*args, chunk=RWKV_CHUNK),
+                wkv6_bwd_plain(*args, chunk=RWKV_CHUNK))),
+        **times(lambda: wkv6_bwd(*args, chunk=RWKV_CHUNK),
+                lambda: wkv6_bwd_plain(*args, chunk=RWKV_CHUNK),
+                plain_queued=False),
+        "library_note": "no one PyTorch call computes WKV-6's backward",
+        "bytes": nbytes, "operations": ops, "bound_ms": t_bound,
+        "bound_by": by}}
+    del args, r, k, v, lw, dy, dstate, carries
+    torch.cuda.empty_cache()
+    emit("wkv6_bwd", rel_err=errs, timing=timing)
+    return timing, checked
+
+
+def _wkv_counters():
+    from repro_torch.kernels.rwkv6 import wkv6_bwd, wkv6_fwd
+    return {"wkv6_fwd": wkv6_fwd, "wkv6_bwd": wkv6_bwd}
+
+
+def _all_counters():
+    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_paged_fwd)
+    return {**_fa_kernels(), "flash_decode_fwd": flash_decode_fwd,
+            "flash_decode_paged_fwd": flash_decode_paged_fwd,
+            **_wkv_counters()}
+
+
+def _zero_counters() -> dict:
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    return counters
+
+
+def _serve_rwkv(model, params, reqs, **kw) -> dict:
+    """One engine of 8 slots over ``reqs``, fcfs, as ``_serve`` gives
+    gpt2's."""
+    from repro_torch.launch.serve import scheduler_config
+    from repro_torch.serve import InferenceEngine
+    eng = InferenceEngine(model, params, scheduler_config(
+        8, PROMPT_LEN, PROMPT_LEN + GEN, **kw), device="cuda")
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    s = eng.stats
+    return {"engine": eng, "results": results, "stats": s,
+            "wall_s": time.perf_counter() - t0,
+            "prefill_tok_s": s.prefill_tok_s, "decode_tok_s": s.decode_tok_s,
+            "p50_s": s.latency_percentile(50),
+            "p95_s": s.latency_percentile(95)}
+
+
+def phase_engine_rwkv(dev: dict, fwd_checked: set) -> dict:
+    """Serves full-depth, full-width rwkv6-7b (fp32, weights from a CUDA
+    generator seeded with SEED) in 8 slots: 16 requests from
+    ``make_requests``, fcfs.  Checks the launch counts (wkv6_fwd 32 x
+    prefill calls, no other kernel), the greedy streams against the same
+    engine at rwkv_backend="reference", and serves the first 8 requests
+    once more through the router (a paged and a dense replica) and moves
+    one request each way between them mid-flight."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import make_requests, scheduler_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import Replica, Router, prefill_split
+    cfg = get_arch("rwkv6-7b")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    params = model_zoo.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED),
+        torch.device("cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = model_zoo.build_model(cfg)
+    plain_model = model_zoo.build_model(cfg.replace(rwkv_backend="reference"))
+    reqs = make_requests(cfg, 16, PROMPT_LEN, GEN, seed=SEED)
+    _serve_rwkv(model, params, reqs[:2])  # warm-up: first-call costs
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    out = _serve_rwkv(model, params, reqs)
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    eng, stats = out["engine"], out["stats"]
+    ladder = eng.scheduler.ladder
+    replay = sum(len(r.tokens) - prefill_split(len(r.tokens), ladder)
+                 for r in reqs)
+    want = {n: 0 for n in counters}
+    want["wkv6_fwd"] = cfg.n_layers * len(reqs)
+    check(launches == want, f"rwkv serve launches {launches} != {want}")
+    check(all(r.n_generated == q.max_tokens and r.finish_reason == "length"
+              for r, q in zip(out["results"], reqs)),
+          "every rwkv request generated its budget")
+    prefills = {_wkv_kernel_shape(1, prefill_split(len(r.tokens), ladder))
+                for r in reqs}
+    check(prefills <= fwd_checked, f"rwkv prefill shapes {prefills} not all "
+                                   f"checked in {fwd_checked}")
+    plain = _serve_rwkv(plain_model, params, reqs)
+    check(_wkv_counters()["wkv6_fwd"].launches == want["wkv6_fwd"],
+          "the reference backend launched wkv6_fwd")
+    diverged, gaps = 0, []
+    for req, a, b in zip(reqs, out["results"], plain["results"]):
+        if a.tokens == b.tokens:
+            continue
+        diverged += 1
+        j = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                 if x != y)
+        gaps.append(_top2_gap(plain["engine"], req, b.tokens, j))
+        check(gaps[-1] < 1e-4, f"rwkv uid {req.uid} diverges at {j} with a "
+                               f"top-2 logit gap of {gaps[-1]}")
+    # device idle share over a steady decode window (a trace of the whole
+    # run holds about a million kernels and takes minutes to read): the
+    # first 8 requests admitted, 6 fused steps untraced, 6 traced (their
+    # budgets of 32 or more tokens keep all 8 slots live throughout)
+    cfg_s = lambda **kw: scheduler_config(8, PROMPT_LEN, PROMPT_LEN + GEN,
+                                          **kw)
+    window = Replica(model, params, cfg_s(), device="cuda")
+    for r in reqs[:8]:
+        window.scheduler.submit(r)
+    while window.admit():
+        pass
+    check(len(window.scheduler.active) == 8, "the decode window's slots")
+    steps6 = lambda: [window.step() for _ in range(6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps6()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps6)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:6]}
+    del window
+
+    # the router: a paged shortest-prompt-first and a dense fcfs replica;
+    # paging is a structural no-op (no leaf of the state has a "seq" axis)
+    oracle = {r.uid: r.tokens for r in out["results"]}
+    paged_kw = dict(paged=True, page_size=PAGE_SIZE, n_pages=N_PAGES)
+    reps = [Replica(model, params, cfg_s(policy="shortest-prompt-first",
+                                         **paged_kw), device="cuda",
+                    name="paged-spf"),
+            Replica(model, params, cfg_s(), device="cuda", name="dense")]
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    routed = Router(reps).run(reqs[:8])
+    router_wall = time.perf_counter() - t0
+    for r in routed:
+        check(r.tokens == oracle[r.uid], f"rwkv router uid {r.uid}")
+    moves = {}
+    for name, src, dst, req in (("dense_to_paged", reps[1], reps[0],
+                                 reqs[0]),
+                                ("paged_to_dense", reps[0], reps[1],
+                                 reqs[1])):
+        src.scheduler.submit(req)
+        src.pump()  # admit and one fused step
+        src.pump()  # one more step mid-flight
+        [slot] = list(src.scheduler.active)
+        src.migrate_slot_to(slot, dst)
+        check(not src.scheduler.busy, "source kept the request")
+        while dst.scheduler.busy:
+            dst.pump()
+        [res] = dst.take_finished()
+        check(res.tokens == oracle[req.uid], f"rwkv migration {name}")
+        moves[name] = "stream equal"
+    router_launches = {n: f.launches for n, f in counters.items()}
+    check(router_launches["wkv6_fwd"] == cfg.n_layers * (8 + 2),
+          f"rwkv router launches {router_launches}")
+    reps[0].state.alloc.check()
+    check(reps[0].state.alloc.pages_in_use == 0, "rwkv pages left in use")
+    emit("engine_rwkv", card=dev["nvidia_smi"], arch=cfg.name,
+         n_layers=cfg.n_layers, params=model_zoo.param_count(cfg),
+         weight_init_s=init_s, prefill_tok_s=out["prefill_tok_s"],
+         decode_tok_s=out["decode_tok_s"], p50_ms=out["p50_s"] * 1e3,
+         p95_ms=out["p95_s"] * 1e3, prefill_calls=len(reqs),
+         fused_steps=stats.decode_steps, replay_steps=replay,
+         launches=launches, max_memory_allocated=peak,
+         wall_ms=out["wall_s"] * 1e3,
+         reference_backend={"decode_tok_s": plain["decode_tok_s"],
+                            "prefill_tok_s": plain["prefill_tok_s"],
+                            "diverged": diverged, "near_tie_gaps": gaps},
+         traced_decode_window={"fused_steps": 6, "live_slots": 8,
+                               "wall_ms_untraced": wall,
+                               "device_busy_ms": busy,
+                               "device_idle_share": 1 - busy / wall,
+                               "top_kernels_ms": top},
+         router={"wall_ms": router_wall * 1e3,
+                 "routed": {r.name: r.stats.admitted for r in reps},
+                 "admission_waits": reps[0].state.refusals,
+                 "migrations": moves, "launches": router_launches})
+    return {"serve_rwkv": {"wkv6_fwd": launches["wkv6_fwd"]},
+            "router_rwkv": {"wkv6_fwd": router_launches["wkv6_fwd"]}}
+
+
+def rwkv_train_config(backend: str = "kernel", remat: str = "none"):
+    from repro_torch.configs import (BatchWarmupConfig, OptimizerConfig,
+                                     SLWConfig, TrainConfig, get_arch)
+    tokens = RWKV_STEPS * RWKV_B * S_TRAIN
+    return TrainConfig(
+        model=get_arch("rwkv6-7b").replace(n_layers=RWKV_LAYERS,
+                                           rwkv_backend=backend),
+        optimizer=OptimizerConfig(
+            lr=6e-4, schedule="token_cosine", warmup_steps=6,
+            warmup_tokens=6 * RWKV_B * S_TRAIN, total_steps=RWKV_STEPS,
+            total_tokens=tokens),
+        slw=SLWConfig(enabled=True, pacing="linear", start_seq_len=8,
+                      duration_steps=12, round_multiple=8, max_buckets=12),
+        batch_warmup=BatchWarmupConfig(enabled=True, start_batch=4,
+                                       warmup_tokens=tokens // 20),
+        seq_len=S_TRAIN, global_batch=RWKV_B, seed=SEED, remat=remat,
+        eval_interval=RWKV_STEPS)
+
+
+def _planted_fault():
+    """Patches the WKV6 Function's backward so dv comes out of the kernel
+    x (1 + RWKV_FAULT): a wrong backward the gradient check must catch."""
+    from unittest import mock
+
+    from repro_torch.kernels.rwkv6 import ops
+    real = ops.wkv6_bwd
+
+    def faulty(*args, **kw):
+        dr, dk, dv, dlw, du = real(*args, **kw)
+        return dr, dk, dv * (1 + RWKV_FAULT), dlw, du
+    return mock.patch.object(ops, "wkv6_bwd", faulty)
+
+
+def _leaf_errs(got, ref, scales) -> list:
+    """max |got - ref| / max |ref| per leaf; where ref is 0, whether got
+    is not."""
+    return [(a - r).abs().max().item() / sc if sc
+            else float(a.abs().max().item() > 0)
+            for a, r, sc in zip(got, ref, scales)]
+
+
+def _compare_rwkv_grads(model, params, batch, trained: bool, eps: float,
+                        limit: float, host: bool = False,
+                        fault: bool = False) -> dict:
+    """Every gradient leaf of one batch through the kernels against the
+    reference backend's on the card, both with the norms' eps set to
+    ``eps``: each leaf within ``limit`` (``math.inf``: reported only) of
+    the largest entry of the reference's.  A leaf whose reference gradient is 0 (w_lora_a while
+    w_lora_b is still 0) must be 0 through the kernels too; wr, wk, wv need
+    a gradient, and w_lora_a too once w_lora_b has moved (``trained``).
+
+    Why ``eps``: at the model's eps (1e-5) the fp32 gradient is
+    ill-conditioned; the reference itself moves by up to a few 1e-2 of a
+    leaf's largest entry between card and host.  The likely cause is the
+    per-head GroupNorm, which makes the loss blind to the size of y at a
+    sequence's first token, y_0 = (r_0 . (u * k_0)) v_0, so the gradient
+    along that direction is rounding noise, amplified where r_0 . (u * k_0)
+    is near 0, and it reaches every leaf.  eps enters only the norms, and
+    a large one bounds that amplification; the kernels run exactly as at
+    the model's eps.
+
+    ``host``: also the same reference on the host's CPU (other BLAS, other
+    orders of summation), reported as the reference's own spread, which
+    shows the conditioning without the kernels.  ``fault``: also the
+    kernel path with a planted dv x (1 + RWKV_FAULT), which must break
+    ``limit``."""
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.transforms import tree_map
+    cfg = model.cfg.replace(norm_eps=eps)
+    kernel = model_zoo.build_model(cfg, remat=model.remat)
+    plain = model_zoo.build_model(cfg.replace(rwkv_backend="reference"),
+                                  remat="full")
+    names = _leaf_names(params)
+    ref = _grads(plain, params, batch)
+    scales = [r.abs().max().item() for r in ref]
+    rel = dict(zip(names, _leaf_errs(_grads(kernel, params, batch), ref,
+                                     scales)))
+    torch.cuda.empty_cache()
+    for name, sc in zip(names, scales):
+        leaf = name.split(".")[-1]
+        if leaf in ("wr", "wk", "wv") or (trained and leaf == "w_lora_a"):
+            check(sc > 0, f"no gradient reaches {name}")
+        check(rel[name] <= limit, f"rwkv gradient {name} at eps {eps}: "
+                                  f"{rel[name]} > {limit}")
+    worst = max(rel, key=rel.get)
+    out = {"eps": eps, "limit": limit if math.isfinite(limit) else None,
+           "max_rel_err": rel[worst], "worst_leaf": worst,
+           "w_lora_a_max_rel_err": max(v for k, v in rel.items()
+                                       if k.endswith("w_lora_a"))}
+    if host:
+        t0 = time.perf_counter()
+        got = _grads(plain, tree_map(lambda t: t.detach().cpu(), params),
+                     {k: v.cpu() for k, v in batch.items()})
+        out["host_reference_s"] = time.perf_counter() - t0
+        out["reference_host_spread"] = max(_leaf_errs(
+            got, [r.cpu() for r in ref], scales))
+        del got
+    if fault:
+        with _planted_fault():
+            bad = dict(zip(names, _leaf_errs(_grads(kernel, params, batch),
+                                             ref, scales)))
+        over = sorted(k for k, v in bad.items() if v > limit)
+        check(bool(over), f"the eps {eps} check missed a planted dv x "
+                          f"{1 + RWKV_FAULT}")
+        worst = max(bad, key=bad.get)
+        out["planted_fault"] = {"dv_scale": 1 + RWKV_FAULT,
+                                "max_rel_err": bad[worst],
+                                "worst_leaf": worst,
+                                "leaves_over_limit": len(over)}
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
+    """Trains rwkv6-7b at full width cut to 4 layers through the Trainer
+    (weights from a CUDA generator seeded with SEED): 20 SLW steps and one
+    full-length eval, then 3 full-length steps untraced and 3 under the
+    profiler.  Against rwkv_backend="reference": every gradient leaf of the
+    first step's batch at the initial weights and of the last step's
+    (8 x 1024) at the trained weights, at the norms' eps raised to
+    RWKV_GRAD_EPS, and reported only at the model's own and at those of
+    RWKV_GRAD_SWEEP (see :func:`_compare_rwkv_grads`),
+    then the first 8 steps' losses from the same initial weights.  The reference runs
+    with remat "full" (recomputing each block changes no arithmetic): its
+    pairwise (B, H, Q, Q, D) decay tensors, kept for autograd, would need
+    some 17 GB a layer at 8 x 1024."""
+    from repro_torch.core.regulators import predict_trajectory
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import transforms as optim_tx
+    tc = rwkv_train_config()
+    trainer = Trainer(tc, eval_batch=RWKV_EVAL, device="cuda")
+    init = optim_tx.tree_map(lambda t: t.detach().clone(),
+                             trainer.state["params"])
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.run()
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = tc.model.n_layers
+
+    check(res.steps == RWKV_STEPS and not res.diverged, "rwkv trained 20 "
+                                                        "steps")
+    check(all(math.isfinite(x) for x in res.loss_history),
+          "rwkv finite losses")
+    plans = predict_trajectory(tc, RWKV_STEPS)
+    ran = list(zip(res.seqlen_history, res.batch_history, res.lr_history))
+    check(ran == [(p.seq_len, p.batch_size, p.lr) for p in plans],
+          "the rwkv run's plans are predict_trajectory's")
+    n_evals = len(res.val_ppl_history)
+    check(n_evals == 1, f"{n_evals} rwkv evals")
+    want = {n: 0 for n in counters}
+    want["wkv6_fwd"] = n_layers * (RWKV_STEPS + n_evals)
+    want["wkv6_bwd"] = n_layers * RWKV_STEPS
+    check(launches == want, f"rwkv train launches {launches} != {want}")
+    shapes = {_wkv_kernel_shape(p.batch_size, p.seq_len) for p in plans}
+    check(shapes <= bwd_checked, f"bwd shapes {shapes - bwd_checked}")
+    shapes.add(_wkv_kernel_shape(RWKV_EVAL, S_TRAIN))
+    check(shapes <= fwd_checked, f"fwd shapes {shapes - fwd_checked}")
+
+    full = [i for i, s in enumerate(res.seqlen_history) if s == S_TRAIN]
+    durations = trainer.watchdog.durations
+    full_s = [durations[i] for i in full]
+    full_tokens = sum(res.batch_history[i] * S_TRAIN for i in full)
+
+    def steps3():
+        for _ in range(3):
+            trainer.run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps3()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps3)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:8]}
+    emit("train_rwkv", card=dev["nvidia_smi"], arch=tc.model.name,
+         n_layers=n_layers, params=model_zoo.param_count(tc.model),
+         steps=res.steps, tokens=res.tokens, full_length_steps=len(full),
+         tokens_per_s_full_length=full_tokens / sum(full_s),
+         p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
+         first_loss=res.loss_history[0], last_loss=res.loss_history[-1],
+         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         launches=launches, max_memory_allocated=peak,
+         wall_s=res.wall_time_s,
+         traced_3_full_steps={"wall_ms_untraced": wall,
+                              "device_busy_ms": busy,
+                              "device_idle_share": 1 - busy / wall,
+                              "top_kernels_ms": top})
+
+    # gradients: the kernel model against the reference one, leaf by leaf,
+    # at the first step's batch and the initial weights, and at the last
+    # step's (full-length) batch and the trained weights
+    trained = trainer.state["params"]
+    trainer.state = None  # frees the Adam moments
+    torch.cuda.empty_cache()
+    grads = {}
+    for weights, i, is_trained in ((init, 0, False),
+                                   (trained, RWKV_STEPS - 1, True)):
+        batch, _ = trainer.stack.apply(trainer.pipeline.batch_at(i), plans[i])
+        batch = trainer.to_device(batch)
+        rows = {"weights": "trained" if is_trained else "initial"}
+        for eps in (RWKV_GRAD_EPS, tc.model.norm_eps, *RWKV_GRAD_SWEEP):
+            strict = eps == RWKV_GRAD_EPS
+            rows[f"eps_{eps:g}"] = _compare_rwkv_grads(
+                trainer.model, weights, batch, is_trained, eps,
+                GRAD_RTOL if strict else math.inf, host=not is_trained,
+                fault=strict)
+        grads[f"{len(batch['tokens'])}x{plans[i].seq_len}"] = rows
+    emit("train_rwkv_grads", leaves=len(_leaf_names(init)), batches=grads)
+    del trained, trainer, weights
+    torch.cuda.empty_cache()
+
+    # the first 8 steps with the reference backend from the same weights
+    ptc = rwkv_train_config("reference", remat="full")
+    plain_trainer = Trainer(ptc, eval_batch=RWKV_EVAL, device="cuda")
+    plain_trainer.state = None
+    torch.cuda.empty_cache()
+    tx = optim_tx.build_optimizer(ptc.optimizer)
+    plain_trainer.state = {
+        "params": init, "opt": tx.init(init),
+        "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    counters = _zero_counters()
+    plain = plain_trainer.run(max_steps=PARITY_STEPS)
+    check(all(f.launches == 0 for f in counters.values()),
+          "the reference rwkv run launched a kernel")
+    n = PARITY_STEPS
+    check(plain.seqlen_history == res.seqlen_history[:n]
+          and plain.batch_history == res.batch_history[:n]
+          and plain.lr_history == res.lr_history[:n], "rwkv parity plans")
+    a, b = np.asarray(res.loss_history[:n]), np.asarray(plain.loss_history)
+    rel = {"loss_history": float(np.max(np.abs(a - b) / np.abs(b)))}
+    check(rel["loss_history"] <= PARITY_RTOL, f"rwkv parity losses: {rel}")
+    a = np.asarray(res.var_max_history[:n])
+    b = np.asarray(plain.var_max_history)
+    rel["var_max_history"] = float(np.max(np.abs(a - b) / np.abs(b)))
+    emit("train_rwkv_parity", steps=n, max_rel_err=rel, rtol=PARITY_RTOL,
+         checked=["loss_history"], seqlens=plain.seqlen_history,
+         batches=plain.batch_history)
+    del plain_trainer, init
+    torch.cuda.empty_cache()
+    return {"wkv6_fwd": launches["wkv6_fwd"],
+            "wkv6_bwd": launches["wkv6_bwd"]}
+
+
 
 def main() -> int:
     dev = phase_device()
@@ -1073,11 +1778,30 @@ def main() -> int:
     bwd_timing, bwd_checked = phase_flash_attention_bwd(train_shapes)
     train = phase_train(dev, bwd_checked)
     phase_train_parity(train)
+    train_launches = train["launches"]
+    del train
+    torch.cuda.empty_cache()
+
+    from repro_torch.launch.serve import scheduler_config
+    from repro_torch.serve import prefill_split
+    ladder = scheduler_config(8, PROMPT_LEN, PROMPT_LEN + GEN).ladder()
+    rwkv_prefills = {(1, prefill_split(len(r.tokens), ladder))
+                     for r in make_requests(get_arch("rwkv6-7b"), 16,
+                                            PROMPT_LEN, GEN, seed=SEED)}
+    rwkv_train_shapes = {(p.batch_size, p.seq_len) for p in
+                         predict_trajectory(rwkv_train_config(), RWKV_STEPS)}
+    wkv_fwd_timing, wkv_fwd_checked = phase_wkv6_fwd(
+        rwkv_prefills, rwkv_train_shapes | {(RWKV_EVAL, S_TRAIN)})
+    wkv_bwd_timing, wkv_bwd_checked = phase_wkv6_bwd(rwkv_train_shapes)
+    rwkv_serve = phase_engine_rwkv(dev, wkv_fwd_checked)
+    torch.cuda.empty_cache()
+    rwkv_train = phase_train_rwkv(dev, wkv_fwd_checked, wkv_bwd_checked)
 
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     by_path = {"serve": serve_launches, "serve_paged": paged_launches,
-               "router": router_launches, "train": train["launches"]}
+               "router": router_launches, "train": train_launches,
+               **rwkv_serve, "train_rwkv": rwkv_train}
     rows = [("flash_attention_fwd", "flash_attention_fwd.cu",
              "flash_attention/kernel.py:168", fa_timing["float32_1x512"]),
             ("flash_attention_bwd_preprocess", "flash_attention_bwd.cu",
@@ -1089,7 +1813,11 @@ def main() -> int:
             ("flash_decode_fwd", "flash_decode.cu",
              "flash_decode/kernel.py:109", fd_timing["float32_main"]),
             ("flash_decode_paged_fwd", "flash_decode.cu",
-             "flash_decode/kernel.py:247", pd_timing["float32_main"])]
+             "flash_decode/kernel.py:247", pd_timing["float32_main"]),
+            ("wkv6_fwd", "wkv6.cu", "rwkv6/kernel.py:113",
+             wkv_fwd_timing["serve_1x512"]),
+            ("wkv6_bwd", "wkv6.cu", "rwkv6/kernel.py:235",
+             wkv_bwd_timing["train_8x1024"])]
     entries = []
     for name, source, rep, t in rows:
         counts = {path: c[name] for path, c in by_path.items() if name in c}

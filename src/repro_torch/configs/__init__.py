@@ -1,14 +1,14 @@
 """Architecture registry of the port (``repro/configs/__init__.py``).
 
 Only the presets the port runs so far are registered: the dense GPT-2
-117M and GPT-3 125M replicas.  ``reduced`` is ``configs/__init__.py:68-89``
-for the dense family.
+117M and GPT-3 125M replicas and rwkv6-7b.  ``reduced`` is
+``configs/__init__.py:68-90`` for the dense and rwkv families.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import gpt2
+from repro_torch.configs import gpt2, rwkv6_7b
 from repro_torch.configs.base import (BatchWarmupConfig, ModelConfig,
                                      OptimizerConfig, RegulatorSpec,
                                      SLWConfig, TrainConfig)
@@ -16,6 +16,7 @@ from repro_torch.configs.base import (BatchWarmupConfig, ModelConfig,
 ARCHS: Dict[str, ModelConfig] = {
     "gpt2-117m": gpt2.GPT2_117M,
     "gpt3-125m": gpt2.GPT3_125M,
+    "rwkv6-7b": rwkv6_7b.RWKV6_7B,
 }
 
 
@@ -27,14 +28,19 @@ def get_arch(name: str) -> ModelConfig:
 
 
 def reduced(model: ModelConfig) -> ModelConfig:
-    """Small same-family config for CPU tests (2 layers, d 64, vocab 512)."""
-    if model.family != "dense":
-        raise ValueError(f"the port has only the dense family, not "
-                         f"{model.family!r}")
-    return model.replace(
+    """Small same-family config for CPU tests (2 layers, d 64, vocab 512;
+    rwkv: 4 heads of 16, LoRA rank 8, chunk 16)."""
+    if model.family not in ("dense", "rwkv"):
+        raise ValueError(f"the port has only the dense and rwkv families, "
+                         f"not {model.family!r}")
+    kw = dict(
         name=model.name + "-reduced", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=max(1, 4 * model.n_kv_heads // max(model.n_heads, 1)),
         head_dim=16, d_ff=96, vocab_size=512, max_seq_len=256)
+    if model.family == "rwkv":
+        kw.update(n_heads=4, n_kv_heads=4, rwkv_head_dim=16,
+                  rwkv_lora_rank=8, rwkv_chunk=16)
+    return model.replace(**kw)
 
 
 __all__ = ["ARCHS", "BatchWarmupConfig", "ModelConfig", "OptimizerConfig",

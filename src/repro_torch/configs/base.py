@@ -4,7 +4,7 @@ Answers to ``repro/configs/base.py``: ``ModelConfig`` (lines 15-113), and
 ``SLWConfig``, ``BatchWarmupConfig``, ``RegulatorSpec``,
 ``OptimizerConfig`` and ``TrainConfig`` (lines 133-331).  The fields are
 copied, not imported, so this package never imports ``repro``.
-``ModelConfig`` keeps the fields the dense family reads; ``TrainConfig``
+``ModelConfig`` keeps the fields the dense and rwkv families read; ``TrainConfig``
 leaves out ``gns`` and the fields only GNS, sharding and checkpoint
 cadence read, which come with their slices.
 """
@@ -36,6 +36,13 @@ class ModelConfig:
     # single-token decode attention: "reference" (plain torch) | "kernel"
     # (the CUDA split-KV kernel on CUDA tensors, plain on CPU tensors)
     decode_backend: str = "reference"
+    # rwkv6 (``base.py:79-85``); WKV train/prefill backend: "reference"
+    # (plain torch) | "kernel" (the CUDA kernels on CUDA tensors, their
+    # plain versions on CPU tensors)
+    rwkv_head_dim: int = 64
+    rwkv_lora_rank: int = 64
+    rwkv_chunk: int = 64
+    rwkv_backend: str = "reference"
     pos_emb: str = "rope"  # rope | learned | none
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     mlp: str = "swiglu"  # swiglu | gelu

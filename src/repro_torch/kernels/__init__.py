@@ -10,10 +10,12 @@ and ``ops.py`` (the model-layout wrapper).
   (``csrc/flash_attention_bwd.cu``) behind a ``torch.autograd.Function``.
 * ``flash_decode`` — split-KV single-token decode over a dense cache or
   through a page table (``csrc/flash_decode.cu``).
+* ``rwkv6`` — the chunked WKV-6 recurrence, forward and reverse chunk scan
+  (``csrc/wkv6.cu``) behind a ``torch.autograd.Function``.
 
 The backend rule.  ``attn_backend`` is "blockwise" or "flash";
-``decode_backend`` is "reference" or "kernel".  "blockwise" and
-"reference" always run plain PyTorch.  "flash" and "kernel" go by the
+``decode_backend`` and ``rwkv_backend`` are "reference" or "kernel".
+"blockwise" and "reference" always run plain PyTorch.  "flash" and "kernel" go by the
 tensor's device: on a CUDA tensor the wrapper launches the CUDA kernel or
 raises; on a CPU tensor (which arises only where the caller asked for
 the CPU) it runs the kernel's plain version.  There is no ``try`` that
@@ -25,6 +27,7 @@ import torch
 
 ATTN_BACKENDS = ("blockwise", "flash")
 DECODE_BACKENDS = ("reference", "kernel")
+RWKV_BACKENDS = ("reference", "kernel")
 
 
 def wants_kernel(backend: str, field: str, allowed) -> bool:
@@ -63,3 +66,13 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def chunk_padding(s: int, chunk: int) -> "tuple[int, int]":
+    """Clamp ``chunk`` to the sequence length and return (chunk, pad)
+    (``repro/kernels/__init__.py:63-72``): ``pad`` zero-extends the
+    sequence to the next chunk multiple (zero inputs with zero log-decay
+    leave the wkv6 state unchanged), and the wrapper slices the padded rows
+    back off the output."""
+    chunk = min(chunk, s)
+    return chunk, (-s) % chunk

@@ -6,17 +6,20 @@ Usable as a library (``train(tc, ...)``, ``Trainer``) and as a CLI:
       --steps 200 --batch 16 --seq 1024 --slw --batch-warmup --duration 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-117m \\
       --reduced --device cpu --steps 20 --seq 64 --batch 4 --slw
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --reduced --device cpu --steps 12 --seq 64 --batch 4 --slw
 
 The loop is the paper's joint recipe: the regulator stack plans the step
 (seqlen bucket, batch size, LR, grad-clip scale) -> the full-length host
 batch is row-sliced and truncated/repacked -> the train step (loss, its
-gradient through the flash-attention kernels, the AdamW chain) -> loss
+gradient through the flash-attention or WKV-6 kernels, the AdamW chain) -> loss
 ratio and Adam-variance telemetry go back into the stack.  Eval, drain,
 the watchdog and telemetry recording are ``TrainerHook``s.
 
 The device defaults to CUDA and the run fails on a machine without one
-unless ``device="cpu"`` / ``--device cpu`` is given.  Training runs in fp32
-with TF32 off, so fp32 means fp32 on the card.  Checkpoints and
+unless ``device="cpu"`` / ``--device cpu`` is given.  The initial weights
+are drawn by a generator on that device.  Training runs in fp32 with TF32
+off, so fp32 means fp32 on the card.  Checkpoints and
 ``resume``, divergence recovery, fault injection and the GNS precursor are
 not ported yet: their options raise.
 """
@@ -235,8 +238,8 @@ class Trainer:
         cfg = tc.model
         self.model = model_zoo.build_model(cfg, remat=tc.remat)
         self.state = steps_lib.init_train_state(
-            torch.Generator().manual_seed(tc.seed), cfg, tc.optimizer,
-            self.device)
+            torch.Generator(device=self.device).manual_seed(tc.seed), cfg,
+            tc.optimizer, self.device)
         corpus = SyntheticCorpus(vocab_size=cfg.vocab_size,
                                  seq_len=tc.seq_len, seed=tc.seed)
         self.pipeline = DataPipeline(corpus, tc.global_batch)

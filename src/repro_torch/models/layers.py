@@ -29,9 +29,11 @@ class ParamDef(NamedTuple):
         if self.init == "ones":
             return torch.ones(self.shape, dtype=torch.float32, device=device)
         if self.init in ("normal", "embed"):
-            # scale * truncated_normal(-3, 3), as jax.random.truncated_normal;
-            # drawn on the CPU so a seed gives the same weights on any device
-            t = torch.empty(self.shape, dtype=torch.float32)
+            # scale * truncated_normal(-3, 3), as jax.random.truncated_normal,
+            # drawn on the generator's device: a CPU generator gives the same
+            # weights on any device, a CUDA generator draws on the card
+            t = torch.empty(self.shape, dtype=torch.float32,
+                            device=generator.device)
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0,
                                         generator=generator)
             return (self.scale * t).to(device)
@@ -61,6 +63,13 @@ def param_count(defs: Any) -> int:
         total += math.prod(d.shape)
     _walk(defs, add)
     return total
+
+
+def cache_dtypes(dtype: torch.dtype) -> Dict[str, torch.dtype]:
+    """torch dtype of each decode-cache leaf kind (``cache_shapes``) for a
+    model running in ``dtype``."""
+    return {"float": dtype, "fp32": torch.float32, "int": torch.int64,
+            "bool": torch.bool}
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

@@ -127,7 +127,7 @@ class DenseLM:
         x = embed_inputs(params, tokens, cfg,
                          torch.zeros((), dtype=torch.int64,
                                      device=tokens.device))
-        shape, dtype = self.cache_shapes(b, cache_len)["k"], x.dtype
+        shape, dtype = self.cache_shapes(b, cache_len)["k"][0], x.dtype
         ks = torch.zeros(shape, dtype=dtype, device=x.device)
         vs = torch.zeros(shape, dtype=dtype, device=x.device)
         for i, lp in enumerate(params["layers"]):
@@ -186,11 +186,14 @@ class DenseLM:
             out["page_table"] = page_table
         return logits, out
 
-    def cache_shapes(self, batch_size: int, seq_len: int) -> Dict[str, tuple]:
+    def cache_shapes(self, batch_size: int, seq_len: int
+                     ) -> Dict[str, Tuple[tuple, str]]:
+        """(shape, kind) per cache leaf; kind "float" is the model's
+        dtype."""
         cfg = self.cfg
-        kv = (cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads,
-              cfg.resolved_head_dim)
-        return {"k": kv, "v": kv, "pos": ()}
+        kv = ((cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads,
+               cfg.resolved_head_dim), "float")
+        return {"k": kv, "v": kv, "pos": ((), "int")}
 
     def cache_axes(self) -> Dict[str, tuple]:
         kv = ("layers", "batch", "seq", "kv_heads", "head_dim")

@@ -82,8 +82,9 @@ class EngineStats:
 def build_weights(arch: str, use_reduced: bool, seed: int,
                   device: torch.device, decode_backend: Optional[str] = None,
                   attn_backend: Optional[str] = None):
-    """(model, fp32 params drawn from ``seed`` on ``device``) of a preset,
-    with the backends overridden where given; replicas share them."""
+    """(model, fp32 params drawn from ``seed`` by a generator on
+    ``device``) of a preset, with the backends overridden where given;
+    replicas share them."""
     from repro_torch.configs import get_arch, reduced as reduce_cfg
     mcfg = get_arch(arch)
     mcfg = reduce_cfg(mcfg) if use_reduced else mcfg
@@ -92,7 +93,7 @@ def build_weights(arch: str, use_reduced: bool, seed: int,
     if attn_backend:
         mcfg = mcfg.replace(attn_backend=attn_backend)
     params = model_zoo.init_params(
-        mcfg, torch.Generator().manual_seed(seed), device)
+        mcfg, torch.Generator(device=device).manual_seed(seed), device)
     return model_zoo.build_model(mcfg), params
 
 

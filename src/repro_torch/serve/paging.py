@@ -2,8 +2,9 @@
 (``repro/serve/paging.py``).
 
 Dense ``SlotDecodeState`` rows reserve ``cache_len`` tokens of KV for every
-slot, whatever each request needs.  Here the k/v leaves become one pool of
-fixed-size pages plus a per-slot page table:
+slot, whatever each request needs.  Here the leaves whose axes hold "seq"
+(the attention k/v) become one pool of fixed-size pages plus a per-slot
+page table:
 
 * pool leaves: dense ``(L, n_slots, cache_len, KV, D)`` becomes
   ``(L, n_pages, page_size, KV, D)``, sized to ``n_pages * page_size``
@@ -16,6 +17,10 @@ fixed-size pages plus a per-slot page table:
   page_size)`` pages before it takes a slot (``try_reserve``, the
   scheduler's ``reserve`` hook), so growth on decode never fails: page
   exhaustion is a wait at admission, not a fault mid-decode.
+
+Recurrent state leaves (RWKV-6's ``wkv`` and token-shift rows) have no
+"seq" axis and stay dense, one row per slot, in the same dict; for RWKV-6
+the paged state is a structural no-op (``paging.py:22-26``).
 
 The allocator lives on the host.  The device table is uploaded only when
 the host table changed (``decode``), not every step.  Prefill and replay
@@ -31,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import model_zoo
-from repro_torch.serve.state import SEQ_AXIS, Cache, SlotDecodeState
+from repro_torch.models.layers import cache_dtypes
+from repro_torch.serve.state import Cache, SlotDecodeState, batch_index
 
 
 class PageExhausted(RuntimeError):
@@ -191,7 +197,7 @@ class PagedDecodeState(SlotDecodeState):
         self._host_pos = np.zeros(n_slots, np.int64)
         self._host_active = np.zeros(n_slots, bool)
         self._dirty = False
-        kinds = {"float": dtype, "int": torch.int64, "bool": torch.bool}
+        kinds = cache_dtypes(dtype)
         cache = {name: torch.zeros(shape, dtype=kinds[kind], device=device)
                  for name, (shape, kind) in paged_cache_specs(
                      self.model, n_slots, cache_len, self.page_size,
@@ -210,8 +216,9 @@ class PagedDecodeState(SlotDecodeState):
 
     def insert_many(self, cache: Cache, slots: torch.Tensor,
                     rows: Cache) -> Cache:
-        """Allocate each row's prompt pages and copy the rows' k/v into
-        them.  ``rows["pos"]`` is 0-dim (shared) or (k,) per row."""
+        """Allocate each row's prompt pages and copy the rows' "seq" leaves
+        into them; the other state leaves go to the slots' rows as in the
+        dense state.  ``rows["pos"]`` is 0-dim (shared) or (k,) per row."""
         slot_list = [int(s) for s in torch.as_tensor(slots).tolist()]
         counts = torch.broadcast_to(rows["pos"].cpu(),
                                     (len(slot_list),)).tolist()
@@ -227,17 +234,24 @@ class PagedDecodeState(SlotDecodeState):
                 dst_page.append(int(self.alloc.table[slot, j]))
         self._dirty = True
         dev = cache["pos"].device
+        idx = torch.tensor(slot_list, dtype=torch.long, device=dev)
         dst = torch.tensor(dst_page, dtype=torch.long, device=dev)
         src = (torch.tensor(src_row, dtype=torch.long, device=dev),
                torch.tensor(src_page, dtype=torch.long, device=dev))
-        for name in ("k", "v"):
-            r = rows[name]  # (L, k, S, KV, D) -> (L, k, S / ps, ps, KV, D)
-            pad = (-r.shape[SEQ_AXIS]) % ps
-            if pad:
-                r = torch.nn.functional.pad(r, (0, 0, 0, 0, 0, pad))
-            pages = r.unflatten(SEQ_AXIS, (r.shape[SEQ_AXIS] // ps, ps))
-            cache[name][:, dst] = pages[:, src[0], src[1]].to(cache[name].dtype)
-        idx = torch.tensor(slot_list, dtype=torch.long, device=dev)
+        for name, ax in self.axes.items():
+            if "seq" in ax:
+                # (.., k, S, ..) -> (.., k, S / ps, ps, ..) -> the pages
+                r, si = rows[name], ax.index("seq")
+                pad = (-r.shape[si]) % ps
+                if pad:
+                    r = torch.nn.functional.pad(
+                        r, [0, 0] * (r.dim() - si - 1) + [0, pad])
+                pages = r.unflatten(si, (r.shape[si] // ps, ps))
+                cache[name][batch_index(ax, dst)] = pages[
+                    batch_index(ax, src[0]) + (src[1],)].to(cache[name].dtype)
+            elif "batch" in ax:
+                cache[name][batch_index(ax, idx)] = rows[name].to(
+                    cache[name].dtype)
         cache["pos"][idx] = torch.tensor(counts, dtype=cache["pos"].dtype,
                                          device=dev)
         cache["active"][idx] = True
@@ -254,18 +268,27 @@ class PagedDecodeState(SlotDecodeState):
         return super().evict(cache, slot)
 
     def gather(self, cache: Cache, slot: int) -> Cache:
-        """The slot's pages as a model-format batch=1 cache of
-        ``pages_per_slot * page_size`` entries, unowned pages zeroed."""
-        row = torch.from_numpy(self.alloc.table[int(slot)].copy()).to(
+        """The slot's state as a model-format batch=1 cache: its pages of
+        each "seq" leaf as ``pages_per_slot * page_size`` entries, unowned
+        pages zeroed, and its rows of the other leaves."""
+        slot = int(slot)
+        row = torch.from_numpy(self.alloc.table[slot].copy()).to(
             cache["pos"].device).long()
-        owned = (row >= 0)[None, :, None, None, None]
         out = {}
-        for name in ("k", "v"):
-            pages = cache[name][:, row.clamp_min(0)]  # (L, pps, ps, KV, D)
-            pages = torch.where(owned, pages, torch.zeros(
-                (), dtype=pages.dtype, device=pages.device))
-            out[name] = pages.flatten(1, 2)[:, None]
-        out["pos"] = cache["pos"][int(slot)].clone()
+        for name, ax in self.axes.items():
+            if "seq" in ax:
+                bi = ax.index("batch")
+                pages = cache[name][batch_index(ax, row.clamp_min(0))]
+                owned = (row >= 0).reshape((1,) * bi + (-1,) + (1,) * (
+                    pages.dim() - bi - 1))
+                pages = torch.where(owned, pages, torch.zeros(
+                    (), dtype=pages.dtype, device=pages.device))
+                out[name] = pages.flatten(bi, bi + 1).unsqueeze(bi)
+            elif "batch" in ax:
+                out[name] = cache[name][batch_index(
+                    ax, slice(slot, slot + 1))].clone()
+            else:
+                out[name] = cache[name][slot].clone()
         return out
 
     def decode(self, params, cache: Cache, tokens: torch.Tensor):

@@ -4,8 +4,8 @@ fallback, and no ported-looking option that quietly does nothing.
 * With ``jax`` blocked, every ``repro_torch`` module and ``chip_smoke``
   import, and none of them pulls in ``repro`` or a ``repro.*`` module.
 * The entry points default to CUDA and raise where there is none.
-* On CPU tensors the kernel wrappers run their plain versions and count
-  no launch.
+* On CPU tensors the kernel wrappers (flash attention, flash decode,
+  WKV-6) run their plain versions and count no launch.
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo.
 """
@@ -97,6 +97,19 @@ def test_cli_defaults_to_cuda(monkeypatch, cli):
                         "--seq", "16"])
 
 
+@pytest.mark.parametrize("cli", ["serve", "train"])
+def test_rwkv_clis_default_to_cuda(monkeypatch, cli):
+    from repro_torch.launch import serve, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if cli == "serve":
+            serve.main(["--arch", "rwkv6-7b", "--reduced", "--batch", "1",
+                        "--prompt-len", "8", "--gen", "2"])
+        else:
+            train.main(["--arch", "rwkv6-7b", "--reduced", "--steps", "1",
+                        "--batch", "2", "--seq", "16"])
+
+
 def test_train_cli_refuses_what_is_not_ported():
     from repro_torch.launch import train
     for flags in (["--recover"], ["--ckpt-dir", "x"], ["--gns"],
@@ -158,6 +171,31 @@ def test_cpu_tensors_through_the_backward_count_no_launch():
     flash_attention(x, x, x).sum().backward()
     assert x.grad is not None
     assert [f.launches for f in kernels] == before
+
+
+def test_cpu_tensors_through_wkv6_count_no_launch():
+    from repro_torch.kernels.rwkv6 import (wkv6, wkv6_bwd, wkv6_bwd_plain,
+                                           wkv6_fwd, wkv6_fwd_plain)
+    before = (wkv6_fwd.launches, wkv6_bwd.launches)
+    g = torch.Generator().manual_seed(2)
+    # head dim 16 and float64: shapes and types the CUDA kernels refuse
+    r, k, v, dy = (torch.randn(1, 2, 12, 16, generator=g, dtype=torch.float64)
+                   for _ in range(4))
+    lw = -torch.rand(1, 2, 12, 16, generator=g, dtype=torch.float64)
+    u = torch.randn(2, 16, generator=g, dtype=torch.float64)
+    got = wkv6_fwd(r, k, v, lw, u, chunk=4, return_carries=True)
+    for a, b in zip(got, wkv6_fwd_plain(r, k, v, lw, u, chunk=4,
+                                        return_carries=True)):
+        assert torch.equal(a, b)
+    ds = torch.randn(1, 2, 16, 16, generator=g)
+    for a, b in zip(wkv6_bwd(r, k, v, lw, u, got[2], dy, ds, chunk=4),
+                    wkv6_bwd_plain(r, k, v, lw, u, got[2], dy, ds, chunk=4)):
+        assert torch.equal(a, b)
+    x = r.clone().requires_grad_()
+    y, state = wkv6(x, k, v, lw, u, chunk=5)  # ragged: padded to 15
+    (y.sum() + state.sum()).backward()
+    assert x.grad is not None and x.grad.shape == x.shape
+    assert (wkv6_fwd.launches, wkv6_bwd.launches) == before
 
 
 def test_other_devices_are_refused():
