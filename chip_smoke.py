@@ -37,7 +37,19 @@ weights from a seed:
   launch counts, every gradient leaf of two batches and the first 8
   steps' losses against the reference backend, and a planted fault in
   the backward that the gradient check must catch).  Their weights are drawn
-  on the card from a CUDA generator.
+  on the card from a CUDA generator;
+* Zamba-2: flash-decode at head dim 80 (dense and paged), the SSD forward
+  and backward kernels against their plain versions (the backward through
+  the autograd Function's reductions, against the plain reverse scan and
+  against autograd through the plain forward) at every shape the zamba
+  paths give them, cum past -1000 included; then full-depth, full-width
+  zamba2-2.7b served from 8 slots (launch counts, greedy streams against
+  the plain reference backends, the router with a replica whose shared
+  attention KV really lives in pages, and a migration each way), and
+  trained at full depth with remat "full" for 20 SLW steps (finite
+  losses, plans, launch counts, every gradient leaf of two batches and 8
+  steps' losses against the reference SSD backend, and a planted fault in
+  the backward that the gradient check must catch).
 
 Phases print one line each.  The second-to-last line lists each kernel
 with its error, times and bound; the last line is
@@ -47,6 +59,7 @@ JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -66,6 +79,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 H, D = 12, 64  # gpt2-117m heads and head dim
+ZAMBA_H, ZAMBA_D = 32, 80  # zamba2-2.7b's shared attention block
 PROMPT_LEN, GEN = 512, 64  # the served requests' longest prompt and budget
 SEED = 0
 # the training run: gpt2-117m, global batch 16 of sequences of 1024, SLW
@@ -88,8 +102,13 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the seconds since the run started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -110,16 +129,24 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 def device_profile(fn, attempts: int = 3):
     """(device ms, {kernel name: device ms}) of the kernels ``fn`` runs,
-    from a CUDA-only ``torch.profiler`` trace.  CUPTI now and then hands
-    back a trace with no device activity at all; such a trace is taken
-    again, and the run fails after ``attempts`` empty ones."""
+    from a CUDA-only ``torch.profiler`` trace: the durations of its device
+    events, summed by name from the trace's kineto events (the numbers
+    ``key_averages()`` gives, without the Python event tree it builds,
+    which took 58 s for a gpt2 engine run's ~400,000 kernels on the H100).
+    CUPTI now and then hands back a trace with no device activity at all;
+    such a trace is taken again, and the run fails after ``attempts`` empty
+    ones."""
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = {e.key: e.self_device_time_total / 1e3
-                 for e in prof.key_averages() if e.self_device_time_total > 0}
+        names = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cuda and e.duration_ns() > 0:
+                ms = e.duration_ns() / 1e6
+                names[e.name()] = names.get(e.name(), 0.0) + ms
         if names:
             return sum(names.values()), names
     raise RuntimeError(f"check failed: the profiler recorded no device time "
@@ -297,10 +324,10 @@ def phase_flash_attention() -> tuple:
     return timing, set(FA_SHAPES)
 
 
-def _decode_inputs(b, s, g, dtype, lengths, seed):
+def _decode_inputs(b, s, g, dtype, lengths, seed, h=H, d=D):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(b, H, g, D, device="cuda", generator=gen).to(dtype)
-    kc, vc = (torch.randn(b, s, H, D, device="cuda", generator=gen).to(dtype)
+    q = torch.randn(b, h, g, d, device="cuda", generator=gen).to(dtype)
+    kc, vc = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
               for _ in range(2))
     return q, kc, vc, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
@@ -365,16 +392,24 @@ def phase_flash_decode(main_lengths, cache_len: int) -> tuple:
     """Checks the kernel on an edge-case cache of 1024 (G 1 and 4) and at
     the serving path's shapes: the fused step's 8 slots at
     ``main_lengths`` and a prompt's replay, one slot, both over
-    ``cache_len``; times it at 1024 and on the fused step."""
+    ``cache_len``; the same at zamba2's head dim 80 (32 heads, G 1), with
+    a ragged set of lengths off multiples of 32 besides.  Times it at 1024,
+    on the fused step, and on zamba2's fused step."""
     lengths = [0, 1, 127, 128, 1000, 1024, 600, 5]
     cases = [(8, 1024, g, lengths) for g in (1, 4)] + [
         (8, cache_len, 1, main_lengths), (1, cache_len, 1, [cache_len - 149])]
+    zamba = [(8, cache_len, main_lengths), (1, cache_len, [cache_len - 149]),
+             (8, cache_len, [0, 1, 31, 129, cache_len, 300, 545, 77])]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (b, s, g, ln) in enumerate(cases):
             key = f"{str(dtype)[6:]}_{b}x{s}_g{g}"
             errs[key] = check_decode(*_decode_inputs(b, s, g, dtype, ln, i),
                                      key)
+        for i, (b, s, ln) in enumerate(zamba):
+            key = f"{str(dtype)[6:]}_{b}x{s}_d80_{i}"
+            errs[key] = check_decode(*_decode_inputs(
+                b, s, 1, dtype, ln, 20 + i, ZAMBA_H, ZAMBA_D), key)
     timing = {}
     for dtype in (torch.float32, torch.bfloat16):
         key = f"{str(dtype)[6:]}_8x1024"
@@ -382,8 +417,12 @@ def phase_flash_decode(main_lengths, cache_len: int) -> tuple:
             *_decode_inputs(8, 1024, 1, dtype, lengths, 3), key)
     timing["float32_main"] = time_decode(*_decode_inputs(
         8, cache_len, 1, torch.float32, main_lengths, 4), "float32_main")
+    timing["float32_zamba_main"] = time_decode(*_decode_inputs(
+        8, cache_len, 1, torch.float32, main_lengths, 5, ZAMBA_H, ZAMBA_D),
+        "float32_zamba_main")
     emit("flash_decode_fwd", max_err=errs, timing=timing)
-    return timing, {(b, s) for b, s, g, _ in cases if g == 1}
+    return timing, ({(b, s, D) for b, s, g, _ in cases if g == 1}
+                    | {(b, s, ZAMBA_D) for b, s, _ in zamba})
 
 
 def _serve(**kw):
@@ -421,8 +460,8 @@ def phase_engine(dev: dict, fa_checked: set, fd_checked: set) -> dict:
     # over one row, both at the slot cache's length)
     prefills = {(1, prefill_split(len(r.tokens), ladder))
                 for r in out["requests"]}
-    decodes = {(eng.cfg.n_slots, eng.cfg.cache_len)} | (
-        {(1, eng.cfg.cache_len)} if replay else set())
+    decodes = {(eng.cfg.n_slots, eng.cfg.cache_len, D)} | (
+        {(1, eng.cfg.cache_len, D)} if replay else set())
     check(prefills <= fa_checked, f"prefill shapes {prefills} not all "
                                   f"checked in {fa_checked}")
     check(decodes <= fd_checked, f"decode shapes {decodes} not all "
@@ -461,19 +500,28 @@ def _top2_gap(engine, request, tokens, j) -> float:
     return float(top[0] - top[1])
 
 
-def phase_parity(engine_out) -> None:
-    out = engine_out["out"]
-    plain = _serve(attn_backend="blockwise", decode_backend="reference")
+def check_streams(reqs, results, plain_results, plain_engine,
+                  what: str) -> tuple:
+    """(diverged, gaps): each greedy stream must equal the plain path's,
+    or leave it only at a near tie, a top-2 logit gap under 1e-4 there."""
     diverged, gaps = 0, []
-    for req, a, b in zip(out["requests"], out["results"], plain["results"]):
+    for req, a, b in zip(reqs, results, plain_results):
         if a.tokens == b.tokens:
             continue
         diverged += 1
         j = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
                  if x != y)
-        gaps.append(_top2_gap(plain["engine"], req, b.tokens, j))
-        check(gaps[-1] < 1e-4, f"uid {req.uid} diverges at {j} with a top-2 "
-                               f"logit gap of {gaps[-1]}")
+        gaps.append(_top2_gap(plain_engine, req, b.tokens, j))
+        check(gaps[-1] < 1e-4, f"{what} uid {req.uid} diverges at {j} with "
+                               f"a top-2 logit gap of {gaps[-1]}")
+    return diverged, gaps
+
+
+def phase_parity(engine_out) -> None:
+    out = engine_out["out"]
+    plain = _serve(attn_backend="blockwise", decode_backend="reference")
+    diverged, gaps = check_streams(out["requests"], out["results"],
+                                   plain["results"], plain["engine"], "gpt2")
     emit("parity", requests=len(out["requests"]), diverged=diverged,
          near_tie_gaps=gaps)
 
@@ -484,16 +532,16 @@ PAGE_SIZE, N_PAGES = 64, 48
 
 
 def _paged_inputs(lengths, ps, max_pages, n_pages, g, dtype, seed,
-                  holes=()):
-    """q (B, 12, g, 64); k and v pools (n_pages, ps, 12, 64), each one
+                  holes=(), h=H, d=D):
+    """q (B, h, g, d); k and v pools (n_pages, ps, h, d), each one
     layer of a stacked (2, n_pages, ...) pool as the engine passes them;
     a table with each row's pages drawn from a shuffled pool (slot 0 need
     not own page 0), ``-1`` past them, and ``-1`` at each (row, page) of
     ``holes``; lengths (B,) int32."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b = len(lengths)
-    q = torch.randn(b, H, g, D, device="cuda", generator=gen).to(dtype)
-    k, v = (torch.randn(2, n_pages, ps, H, D, device="cuda",
+    q = torch.randn(b, h, g, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(2, n_pages, ps, h, d, device="cuda",
                         generator=gen).to(dtype)[1] for _ in range(2))
     perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
         seed)).tolist()
@@ -589,7 +637,23 @@ def phase_flash_decode_paged(main_lengths, cache_len: int) -> tuple:
                 table[7, 3] = table[4, 0]  # shared page id past row 7's end
                 errs[key] = check_paged(q, k, v, table, lens, key)
                 if dtype == torch.float32 and g == 1:
-                    checked.add((len(lengths), mp, ps, 64))
+                    checked.add((len(lengths), mp, ps, 64, D))
+        # zamba2's head dim 80, G 1, pages of 64: the edge lengths, holes
+        # and a shared page id as above, and lengths off multiples of 32
+        ps = PAGE_SIZE
+        mp = -(-cache_len // ps)
+        for i, lengths in enumerate((
+                [0, 1, ps, ps + 1, mp * ps, 2 * ps + 5, 1, 2 * ps],
+                [min(n, mp * ps) for n in (31, 129, 300, 545, 77, 1, 250,
+                                           200)])):
+            key = f"{str(dtype)[6:]}_ps64_d80_{i}"
+            q, k, v, table, lens = _paged_inputs(
+                lengths, ps, mp, 8 * mp, 1, dtype, 30 + i,
+                holes=[(5, 1), (6, 0)] if i == 0 else [], h=ZAMBA_H,
+                d=ZAMBA_D)
+            if i == 0:
+                table[7, 3] = table[4, 0]
+            errs[key] = check_paged(q, k, v, table, lens, key)
     lengths, free = paged_main_lengths(main_lengths)
     mp = -(-cache_len // PAGE_SIZE)
     timing = {}
@@ -598,7 +662,12 @@ def phase_flash_decode_paged(main_lengths, cache_len: int) -> tuple:
         args = _paged_inputs(lengths, PAGE_SIZE, mp, N_PAGES, 1, dtype, 7,
                              holes=[(i, 0) for i in free])
         timing[key] = time_paged(*args, key)
-    checked.add((len(lengths), mp, PAGE_SIZE, N_PAGES))
+    timing["float32_zamba_main"] = time_paged(*_paged_inputs(
+        lengths, PAGE_SIZE, mp, N_PAGES, 1, torch.float32, 8,
+        holes=[(i, 0) for i in free], h=ZAMBA_H, d=ZAMBA_D),
+        "float32_zamba_main")
+    checked |= {(len(lengths), mp, PAGE_SIZE, N_PAGES, d)
+                for d in (D, ZAMBA_D)}
     emit("flash_decode_paged_fwd", max_err=errs, timing=timing,
          main_lengths=lengths)
     return timing, checked
@@ -637,9 +706,10 @@ def phase_engine_paged(dev: dict, engine: dict, fa_checked: set,
     state.alloc.check()
     check(state.alloc.pages_in_use == 0, "pages left in use")
     mp = state.alloc.pages_per_slot
-    check({(eng.cfg.n_slots, mp, PAGE_SIZE, N_PAGES)} <= pd_checked,
+    check({(eng.cfg.n_slots, mp, PAGE_SIZE, N_PAGES, D)} <= pd_checked,
           f"paged shape not checked in {pd_checked}")
-    check({(1, eng.cfg.cache_len)} <= fd_checked, "replay shape not checked")
+    check({(1, eng.cfg.cache_len, D)} <= fd_checked,
+          "replay shape not checked")
     check({(1, prefill_split(len(r.tokens), ladder))
            for r in out["requests"]} <= fa_checked, "prefill shapes")
     kv = lambda c: cache_nbytes({n: c[n] for n in ("k", "v")})
@@ -1151,35 +1221,46 @@ def wkv6_bwd_work(b, s, q) -> tuple:
     return nbytes, b * h * nc * per_chunk
 
 
-def check_wkv6_fwd(r, k, v, lw, u, chunk, what, rtol=WKV_RTOL) -> dict:
-    """{y, state, carries}: relative errors of the forward kernel against
-    its plain version on the same inputs.  fp32 y within ``rtol`` of max
-    |y|; bf16 y within :func:`bf16_tolerance` plus that; the fp32 state and
-    carries within ``rtol``.  Fails on any non-finite output."""
-    from repro_torch.kernels.rwkv6 import wkv6_fwd, wkv6_fwd_plain
-    got = wkv6_fwd(r, k, v, lw, u, chunk=chunk, return_carries=True)
-    ref = wkv6_fwd_plain(r, k, v, lw, u, chunk=chunk, return_carries=True)
+def check_scan_fwd(kernel, plain, args, chunk, what, rtol) -> dict:
+    """{y, state, carries}: relative errors of a chunked-scan forward
+    kernel (WKV-6, SSD) against its plain version on the same inputs.  fp32
+    y within ``rtol`` of max |y|; bf16 y within :func:`bf16_tolerance` plus
+    that; the fp32 state and carries within ``rtol``.  Fails on any
+    non-finite output."""
+    got = kernel(*args, chunk=chunk, return_carries=True)
+    ref = plain(*args, chunk=chunk, return_carries=True)
     torch.cuda.synchronize()
+    name = kernel.__name__
     check(all(bool(torch.isfinite(t.float()).all()) for t in got),
-          f"wkv6_fwd {what}: non-finite output")
+          f"{name} {what}: non-finite output")
     errs = {}
-    for name, a, e in zip(("y", "state", "carries"), got, ref):
-        scale = e.float().abs().max().item()
-        tol = rtol * scale
-        if name == "y" and a.dtype == torch.bfloat16:
+    for out, a, e in zip(("y", "state", "carries"), got, ref):
+        tol = rtol * e.float().abs().max().item()
+        if out == "y" and a.dtype == torch.bfloat16:
             tol = tol + bf16_tolerance(a, e) - 2e-5
         check(bool(((a.float() - e.float()).abs() <= tol).all()),
-              f"wkv6_fwd {name} {what}: {_rel_err(a, e)}")
-        errs[name] = _rel_err(a, e)
+              f"{name} {out} {what}: {_rel_err(a, e)}")
+        errs[out] = _rel_err(a, e)
     return errs
 
 
-def _wkv_kernel_shape(b, s):
-    """(B, S, chunk) the forward kernel sees for a (B, S) input: the chunk
-    clamped to S and S padded to a multiple of it (``chunk_padding``)."""
+def check_wkv6_fwd(r, k, v, lw, u, chunk, what, rtol=WKV_RTOL) -> dict:
+    from repro_torch.kernels.rwkv6 import wkv6_fwd, wkv6_fwd_plain
+    return check_scan_fwd(wkv6_fwd, wkv6_fwd_plain, (r, k, v, lw, u), chunk,
+                          what, rtol)
+
+
+def _kernel_shape(b, s, chunk):
+    """(B, S, chunk) a chunked-scan kernel sees for a (B, S) input: the
+    chunk clamped to S and S padded to a multiple of it
+    (``chunk_padding``)."""
     from repro_torch.kernels import chunk_padding
-    q, pad = chunk_padding(s, RWKV_CHUNK)
+    q, pad = chunk_padding(s, chunk)
     return b, s + pad, q
+
+
+def _wkv_kernel_shape(b, s):
+    return _kernel_shape(b, s, RWKV_CHUNK)
 
 
 def phase_wkv6_fwd(prefills, train_shapes) -> tuple:
@@ -1331,12 +1412,17 @@ def _wkv_counters():
     return {"wkv6_fwd": wkv6_fwd, "wkv6_bwd": wkv6_bwd}
 
 
+def _ssd_counters():
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
+    return {"ssd_fwd": ssd_fwd, "ssd_bwd": ssd_bwd}
+
+
 def _all_counters():
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
                                                   flash_decode_paged_fwd)
     return {**_fa_kernels(), "flash_decode_fwd": flash_decode_fwd,
             "flash_decode_paged_fwd": flash_decode_paged_fwd,
-            **_wkv_counters()}
+            **_wkv_counters(), **_ssd_counters()}
 
 
 def _zero_counters() -> dict:
@@ -1346,9 +1432,9 @@ def _zero_counters() -> dict:
     return counters
 
 
-def _serve_rwkv(model, params, reqs, **kw) -> dict:
+def _serve_model(model, params, reqs, **kw) -> dict:
     """One engine of 8 slots over ``reqs``, fcfs, as ``_serve`` gives
-    gpt2's."""
+    gpt2's (the rwkv and zamba phases)."""
     from repro_torch.launch.serve import scheduler_config
     from repro_torch.serve import InferenceEngine
     eng = InferenceEngine(model, params, scheduler_config(
@@ -1388,10 +1474,10 @@ def phase_engine_rwkv(dev: dict, fwd_checked: set) -> dict:
     model = model_zoo.build_model(cfg)
     plain_model = model_zoo.build_model(cfg.replace(rwkv_backend="reference"))
     reqs = make_requests(cfg, 16, PROMPT_LEN, GEN, seed=SEED)
-    _serve_rwkv(model, params, reqs[:2])  # warm-up: first-call costs
+    _serve_model(model, params, reqs[:2])  # warm-up: first-call costs
     counters = _zero_counters()
     torch.cuda.reset_peak_memory_stats()
-    out = _serve_rwkv(model, params, reqs)
+    out = _serve_model(model, params, reqs)
     launches = {n: f.launches for n, f in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     eng, stats = out["engine"], out["stats"]
@@ -1408,19 +1494,11 @@ def phase_engine_rwkv(dev: dict, fwd_checked: set) -> dict:
                 for r in reqs}
     check(prefills <= fwd_checked, f"rwkv prefill shapes {prefills} not all "
                                    f"checked in {fwd_checked}")
-    plain = _serve_rwkv(plain_model, params, reqs)
+    plain = _serve_model(plain_model, params, reqs)
     check(_wkv_counters()["wkv6_fwd"].launches == want["wkv6_fwd"],
           "the reference backend launched wkv6_fwd")
-    diverged, gaps = 0, []
-    for req, a, b in zip(reqs, out["results"], plain["results"]):
-        if a.tokens == b.tokens:
-            continue
-        diverged += 1
-        j = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
-                 if x != y)
-        gaps.append(_top2_gap(plain["engine"], req, b.tokens, j))
-        check(gaps[-1] < 1e-4, f"rwkv uid {req.uid} diverges at {j} with a "
-                               f"top-2 logit gap of {gaps[-1]}")
+    diverged, gaps = check_streams(reqs, out["results"], plain["results"],
+                                   plain["engine"], "rwkv")
     # device idle share over a steady decode window (a trace of the whole
     # run holds about a million kernels and takes minutes to read): the
     # first 8 requests admitted, 6 fused steps untraced, 6 traced (their
@@ -1544,37 +1622,25 @@ def _leaf_errs(got, ref, scales) -> list:
             for a, r, sc in zip(got, ref, scales)]
 
 
-def _compare_rwkv_grads(model, params, batch, trained: bool, eps: float,
-                        limit: float, host: bool = False,
-                        fault: bool = False) -> dict:
+def _compare_grads_at_eps(model, plain_backend: dict, params, batch,
+                          eps: float, limit: float, needs_grad,
+                          planted=None, host: bool = False):
     """Every gradient leaf of one batch through the kernels against the
-    reference backend's on the card, both with the norms' eps set to
-    ``eps``: each leaf within ``limit`` (``math.inf``: reported only) of
-    the largest entry of the reference's.  A leaf whose reference gradient is 0 (w_lora_a while
-    w_lora_b is still 0) must be 0 through the kernels too; wr, wk, wv need
-    a gradient, and w_lora_a too once w_lora_b has moved (``trained``).
-
-    Why ``eps``: at the model's eps (1e-5) the fp32 gradient is
-    ill-conditioned; the reference itself moves by up to a few 1e-2 of a
-    leaf's largest entry between card and host.  The likely cause is the
-    per-head GroupNorm, which makes the loss blind to the size of y at a
-    sequence's first token, y_0 = (r_0 . (u * k_0)) v_0, so the gradient
-    along that direction is rounding noise, amplified where r_0 . (u * k_0)
-    is near 0, and it reaches every leaf.  eps enters only the norms, and
-    a large one bounds that amplification; the kernels run exactly as at
-    the model's eps.
-
-    ``host``: also the same reference on the host's CPU (other BLAS, other
-    orders of summation), reported as the reference's own spread, which
-    shows the conditioning without the kernels.  ``fault``: also the
-    kernel path with a planted dv x (1 + RWKV_FAULT), which must break
-    ``limit``."""
+    reference backend's (``model.cfg`` with ``plain_backend``) on the
+    card, both with the norms' eps set to ``eps``: each leaf within
+    ``limit`` (``math.inf``: reported only) of the largest entry of the
+    reference's, and every leaf that ``needs_grad(name)`` with a nonzero
+    one.  The kernels run exactly as at the model's eps.  ``host``: also
+    the same reference on the host's CPU (other BLAS, other orders of
+    summation), reported as the reference's own spread, which shows the
+    conditioning without the kernels.  ``planted``: (patch, fields) of a
+    wrong backward that must break ``limit``.  Returns (report, {leaf:
+    error})."""
     from repro_torch.models import model_zoo
     from repro_torch.optim.transforms import tree_map
     cfg = model.cfg.replace(norm_eps=eps)
     kernel = model_zoo.build_model(cfg, remat=model.remat)
-    plain = model_zoo.build_model(cfg.replace(rwkv_backend="reference"),
-                                  remat="full")
+    plain = model_zoo.build_model(cfg.replace(**plain_backend), remat="full")
     names = _leaf_names(params)
     ref = _grads(plain, params, batch)
     scales = [r.abs().max().item() for r in ref]
@@ -1582,16 +1648,13 @@ def _compare_rwkv_grads(model, params, batch, trained: bool, eps: float,
                                      scales)))
     torch.cuda.empty_cache()
     for name, sc in zip(names, scales):
-        leaf = name.split(".")[-1]
-        if leaf in ("wr", "wk", "wv") or (trained and leaf == "w_lora_a"):
+        if needs_grad(name):
             check(sc > 0, f"no gradient reaches {name}")
-        check(rel[name] <= limit, f"rwkv gradient {name} at eps {eps}: "
+        check(rel[name] <= limit, f"{cfg.name} gradient {name} at eps {eps}: "
                                   f"{rel[name]} > {limit}")
     worst = max(rel, key=rel.get)
     out = {"eps": eps, "limit": limit if math.isfinite(limit) else None,
-           "max_rel_err": rel[worst], "worst_leaf": worst,
-           "w_lora_a_max_rel_err": max(v for k, v in rel.items()
-                                       if k.endswith("w_lora_a"))}
+           "max_rel_err": rel[worst], "worst_leaf": worst}
     if host:
         t0 = time.perf_counter()
         got = _grads(plain, tree_map(lambda t: t.detach().cpu(), params),
@@ -1600,21 +1663,83 @@ def _compare_rwkv_grads(model, params, batch, trained: bool, eps: float,
         out["reference_host_spread"] = max(_leaf_errs(
             got, [r.cpu() for r in ref], scales))
         del got
-    if fault:
-        with _planted_fault():
+    if planted is not None:
+        patch, fields = planted
+        with patch():
             bad = dict(zip(names, _leaf_errs(_grads(kernel, params, batch),
                                              ref, scales)))
         over = sorted(k for k, v in bad.items() if v > limit)
-        check(bool(over), f"the eps {eps} check missed a planted dv x "
-                          f"{1 + RWKV_FAULT}")
+        check(bool(over), f"the eps {eps} check missed a planted {fields}")
         worst = max(bad, key=bad.get)
-        out["planted_fault"] = {"dv_scale": 1 + RWKV_FAULT,
-                                "max_rel_err": bad[worst],
+        out["planted_fault"] = {**fields, "max_rel_err": bad[worst],
                                 "worst_leaf": worst,
                                 "leaves_over_limit": len(over)}
     del ref
     torch.cuda.empty_cache()
+    return out, rel
+
+
+def _compare_rwkv_grads(model, params, batch, trained: bool, eps: float,
+                        limit: float, host: bool = False,
+                        fault: bool = False) -> dict:
+    """:func:`_compare_grads_at_eps` against rwkv_backend="reference".  A
+    leaf whose reference gradient is 0 (w_lora_a while w_lora_b is still
+    0) must be 0 through the kernels too; wr, wk, wv need a gradient, and
+    w_lora_a too once w_lora_b has moved (``trained``).  ``fault``: the
+    planted dv x (1 + RWKV_FAULT).
+
+    Why ``eps``: at the model's eps (1e-5) the fp32 gradient is
+    ill-conditioned; the reference itself moves by up to a few 1e-2 of a
+    leaf's largest entry between card and host.  The likely cause is the
+    per-head GroupNorm, which makes the loss blind to the size of y at a
+    sequence's first token, y_0 = (r_0 . (u * k_0)) v_0, so the gradient
+    along that direction is rounding noise, amplified where r_0 . (u * k_0)
+    is near 0, and it reaches every leaf.  eps enters only the norms, and
+    a large one bounds that amplification."""
+    leaves = ("wr", "wk", "wv") + (("w_lora_a",) if trained else ())
+    out, rel = _compare_grads_at_eps(
+        model, {"rwkv_backend": "reference"}, params, batch, eps, limit,
+        lambda name: name.split(".")[-1] in leaves,
+        (_planted_fault, {"dv_scale": 1 + RWKV_FAULT}) if fault else None,
+        host)
+    out["w_lora_a_max_rel_err"] = max(v for k, v in rel.items()
+                                      if k.endswith("w_lora_a"))
     return out
+
+
+def check_parity_steps(ptc, init, res, what: str) -> None:
+    """Trains ``ptc`` (the kernels' run's config at a reference backend)
+    for PARITY_STEPS steps from ``init`` with fresh optimizer state: no
+    kernel launches, the plans of ``res``'s first steps, and its losses
+    within PARITY_RTOL (``var_max`` reported)."""
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim import transforms as optim_tx
+    plain_trainer = Trainer(ptc, eval_batch=EVAL_BATCH, device="cuda")
+    plain_trainer.state = None
+    torch.cuda.empty_cache()
+    tx = optim_tx.build_optimizer(ptc.optimizer)
+    plain_trainer.state = {
+        "params": init, "opt": tx.init(init),
+        "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    counters = _zero_counters()
+    plain = plain_trainer.run(max_steps=PARITY_STEPS)
+    check(all(f.launches == 0 for f in counters.values()),
+          f"the reference {what} run launched a kernel")
+    n = PARITY_STEPS
+    check(plain.seqlen_history == res.seqlen_history[:n]
+          and plain.batch_history == res.batch_history[:n]
+          and plain.lr_history == res.lr_history[:n], f"{what} parity plans")
+    a, b = np.asarray(res.loss_history[:n]), np.asarray(plain.loss_history)
+    rel = {"loss_history": float(np.max(np.abs(a - b) / np.abs(b)))}
+    check(rel["loss_history"] <= PARITY_RTOL, f"{what} parity losses: {rel}")
+    a = np.asarray(res.var_max_history[:n])
+    b = np.asarray(plain.var_max_history)
+    rel["var_max_history"] = float(np.max(np.abs(a - b) / np.abs(b)))
+    emit(f"train_{what}_parity", steps=n, max_rel_err=rel, rtol=PARITY_RTOL,
+         checked=["loss_history"], seqlens=plain.seqlen_history,
+         batches=plain.batch_history)
+    del plain_trainer
+    torch.cuda.empty_cache()
 
 
 def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
@@ -1718,35 +1843,587 @@ def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
     torch.cuda.empty_cache()
 
     # the first 8 steps with the reference backend from the same weights
-    ptc = rwkv_train_config("reference", remat="full")
-    plain_trainer = Trainer(ptc, eval_batch=RWKV_EVAL, device="cuda")
-    plain_trainer.state = None
-    torch.cuda.empty_cache()
-    tx = optim_tx.build_optimizer(ptc.optimizer)
-    plain_trainer.state = {
-        "params": init, "opt": tx.init(init),
-        "step": torch.zeros((), dtype=torch.int32, device="cuda")}
-    counters = _zero_counters()
-    plain = plain_trainer.run(max_steps=PARITY_STEPS)
-    check(all(f.launches == 0 for f in counters.values()),
-          "the reference rwkv run launched a kernel")
-    n = PARITY_STEPS
-    check(plain.seqlen_history == res.seqlen_history[:n]
-          and plain.batch_history == res.batch_history[:n]
-          and plain.lr_history == res.lr_history[:n], "rwkv parity plans")
-    a, b = np.asarray(res.loss_history[:n]), np.asarray(plain.loss_history)
-    rel = {"loss_history": float(np.max(np.abs(a - b) / np.abs(b)))}
-    check(rel["loss_history"] <= PARITY_RTOL, f"rwkv parity losses: {rel}")
-    a = np.asarray(res.var_max_history[:n])
-    b = np.asarray(plain.var_max_history)
-    rel["var_max_history"] = float(np.max(np.abs(a - b) / np.abs(b)))
-    emit("train_rwkv_parity", steps=n, max_rel_err=rel, rtol=PARITY_RTOL,
-         checked=["loss_history"], seqlens=plain.seqlen_history,
-         batches=plain.batch_history)
-    del plain_trainer, init
-    torch.cuda.empty_cache()
+    check_parity_steps(rwkv_train_config("reference", remat="full"), init,
+                       res, "rwkv")
+    del init
     return {"wkv6_fwd": launches["wkv6_fwd"],
             "wkv6_bwd": launches["wkv6_bwd"]}
+
+
+# ---------------------------------------------------------------------------
+# Zamba-2: the SSD kernels, serving and training zamba2-2.7b at full width
+# ---------------------------------------------------------------------------
+
+SSD_H, SSD_P, SSD_N, SSD_CHUNK = 80, 64, 64, 128  # zamba2-2.7b's SSD
+# training: zamba2-2.7b at full width and depth, remat "full", global batch
+# 8 of sequences of 1024, SLW linear from 8 over 12 steps, batch warmup
+# from 4, 20 steps, one eval of 8 sequences
+ZAMBA_B, ZAMBA_STEPS, ZAMBA_EVAL = 8, 20, 8
+# the SSD kernels against their plain versions, fp32: each output within
+# this fraction of the plain output's largest entry (fixed before the first
+# run: fp32 sums over up to 128 rows and 64 channels in another order)
+SSD_RTOL = 1e-4
+# cum past -1000 within a chunk (dt near 4, a near -3): its fp32 ulp is
+# 6e-5, and a pairwise exponent is a difference of two such sums
+SSD_DEEP_RTOL = 2e-3
+# a planted fault the zamba gradient check must catch: the backward kernel's
+# per-head dB x (1 + this)
+SSD_FAULT = 1e-2
+# the zamba gradients, kernel path against the reference SSD backend on the
+# card: every leaf of two batches within GRAD_RTOL of the leaf's largest
+# entry at the norms' eps raised to this, and only reported at the model's
+# 1e-5.  At 1e-5 the fp32 gradient of 54 layers and 9 shared-block
+# applications is too ill-conditioned for a fixed 1e-4 (PERF.md, section 6,
+# Zamba-2): the first run failed there (embed 1.00013e-4) with every kernel
+# check passed; the host-vs-card spread of the reference itself, reported
+# at 1e-5, shows the conditioning without the kernels.  As for rwkv, eps
+# enters only the norms and a large one bounds the amplification
+ZAMBA_GRAD_EPS = 1.0
+
+
+def _ssd_inputs(b, s, dtype, seed, deep: bool = False):
+    """x (B, 80, S, 64) in ``dtype``; dt = softplus(N(0, 1)) fp32 and a =
+    -exp(N(0, 0.5^2)) (the model at init: dt_bias 0, a_log 0), or with
+    ``deep`` dt near 4 and a near -3; B, C (B, S, 64) of scale 0.5."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, SSD_H, s, SSD_P, device="cuda", generator=gen)
+    raw = torch.randn(b, SSD_H, s, device="cuda", generator=gen)
+    dt = F.softplus(raw + (4.0 if deep else 0.0))
+    a = -torch.exp(0.5 * torch.randn(SSD_H, device="cuda", generator=gen))
+    a = a - 2.0 if deep else a
+    b_in, c_in = (0.5 * torch.randn(b, s, SSD_N, device="cuda",
+                                    generator=gen) for _ in range(2))
+    return x.to(dtype), dt, a, b_in.to(dtype), c_in.to(dtype)
+
+
+def _ssd_kernel_shape(b, s):
+    return _kernel_shape(b, s, SSD_CHUNK)
+
+
+def _causal(q: int) -> int:
+    return q * (q + 1) // 2
+
+
+def ssd_fwd_work(b, s, q, elt) -> tuple:
+    """(bytes, operations) of one forward call without carries at (B, 80,
+    S, 64), chunk q: x, y in ``elt`` bytes, B, C (shared by the heads)
+    read once, dt fp32, a, and the fp32 state written once; per chunk and
+    head the causal half of the scores and of the intra-chunk product
+    (Q (Q + 1) / 2 (N + P) multiply-adds) and one exp per causal pair, the
+    carried-state term and the state update (2 Q N P multiply-adds): the
+    reference's own count (``benchmarks/bench_kernels.py:104``) with the
+    causal half and the exps."""
+    h, p, n, nc = SSD_H, SSD_P, SSD_N, s // q
+    nbytes = (2 * b * h * s * p * elt + 2 * b * s * n * elt + b * h * s * 4
+              + h * 4 + b * h * n * p * 4)
+    per_chunk = 2 * _causal(q) * (n + p) + _causal(q) + 4 * q * n * p
+    return nbytes, b * h * nc * per_chunk
+
+
+def ssd_bwd_work(b, s, q) -> tuple:
+    """(bytes, operations) of one backward call, fp32: x, dt, B, C, the
+    carries, dy, dstate read once, dx, ddt, dlog and the per-head dB, dC
+    written once; per chunk and head the causal halves of the scores, of
+    M^T dy, of dy xdt^T and of w B and w^T C (Q (Q + 1) / 2 (3 N + 2 P)
+    multiply-adds), two exps per causal pair, and six (Q, N, P) products
+    (the state terms of dx, dB, dC, u, t2, and the cotangent update)."""
+    h, p, n, nc = SSD_H, SSD_P, SSD_N, s // q
+    nbytes = (3 * b * h * s * p * 4 + 2 * b * s * n * 4 + 3 * b * h * s * 4
+              + b * h * (nc + 1) * n * p * 4 + h * 4
+              + 2 * b * h * s * n * 4)
+    per_chunk = (2 * _causal(q) * (3 * n + 2 * p) + 2 * _causal(q)
+                 + 12 * q * n * p)
+    return nbytes, b * h * nc * per_chunk
+
+
+def check_ssd_fwd(x, dt, a, b_in, c_in, chunk, what, rtol=SSD_RTOL) -> dict:
+    from repro_torch.kernels.ssd import ssd_fwd, ssd_fwd_plain
+    return check_scan_fwd(ssd_fwd, ssd_fwd_plain, (x, dt, a, b_in, c_in),
+                          chunk, what, rtol)
+
+
+def phase_ssd_fwd(prefills, train_shapes) -> tuple:
+    """Holds the forward kernel against its plain version at the serving
+    prefills (B 1, S 256/384/512), every (batch, S) of the zamba training
+    plan and its eval, one bf16 case, S below a chunk, S off a chunk
+    multiple (through the padding wrapper), and cum past -1000 within a
+    chunk; times it at the largest prefill and at the full-length batch."""
+    from repro_torch.kernels.ssd import ssd, ssd_fwd, ssd_fwd_plain
+    errs, checked = {}, set()
+    for i, (b, s) in enumerate(sorted(set(prefills) | set(train_shapes))):
+        kb, ks, q = _ssd_kernel_shape(b, s)
+        errs[f"{b}x{s}"] = check_ssd_fwd(*_ssd_inputs(kb, ks, torch.float32,
+                                                      i), q, f"{b}x{s}")
+        checked.add((kb, ks, q))
+    errs["bf16_2x256"] = check_ssd_fwd(
+        *_ssd_inputs(2, 256, torch.bfloat16, 50), SSD_CHUNK, "bf16")
+    errs["short_2x40"] = check_ssd_fwd(*_ssd_inputs(2, 40, torch.float32, 51),
+                                       40, "S < chunk")
+    deep = _ssd_inputs(1, 256, torch.float32, 52, deep=True)
+    cum_min = (deep[1][..., :SSD_CHUNK] * deep[2][None, :, None]).sum(
+        dim=-1).min().item()
+    check(cum_min < -1000, f"deep decay reaches only {cum_min}")
+    errs["deep_decay_1x256"] = dict(
+        check_ssd_fwd(*deep, SSD_CHUNK, "cum past -1000",
+                      rtol=SSD_DEEP_RTOL), cum_min=cum_min)
+    # S = 300 through the wrapper: zero-padded to 384, sliced back
+    x, dt, a, b_in, c_in = _ssd_inputs(2, 300, torch.float32, 53)
+    y, state = ssd(x, dt, a, b_in, c_in, chunk=SSD_CHUNK)
+    ry, rstate = ssd_fwd_plain(F.pad(x, (0, 0, 0, 84)), F.pad(dt, (0, 84)),
+                               a, F.pad(b_in, (0, 0, 0, 84)),
+                               F.pad(c_in, (0, 0, 0, 84)), chunk=SSD_CHUNK)
+    torch.cuda.synchronize()
+    errs["ragged_2x300"] = {"y": _rel_err(y, ry[:, :, :300]),
+                            "state": _rel_err(state, rstate)}
+    check(max(errs["ragged_2x300"].values()) <= SSD_RTOL, "ssd S = 300")
+
+    timing = {}
+    for key, b, s in (("serve_1x512", 1, max(s for _, s in prefills)),
+                      ("train_8x1024", ZAMBA_B, S_TRAIN)):
+        b, s, q = _ssd_kernel_shape(b, s)
+        x, dt, a, b_in, c_in = _ssd_inputs(b, s, torch.float32, 60)
+        nbytes, ops = ssd_fwd_work(b, s, q, 4)
+        t_bound, by = bound(nbytes, ops, torch.float32)
+        timing[key] = {
+            "max_abs_err": (ssd_fwd(x, dt, a, b_in, c_in, chunk=q)[0]
+                            - ssd_fwd_plain(x, dt, a, b_in, c_in,
+                                            chunk=q)[0]).abs().max().item(),
+            **times(lambda: ssd_fwd(x, dt, a, b_in, c_in, chunk=q),
+                    lambda: ssd_fwd_plain(x, dt, a, b_in, c_in, chunk=q),
+                    plain_queued=False),
+            "library_note": "no one PyTorch call computes the SSD scan",
+            "bytes": nbytes, "operations": ops, "bound_ms": t_bound,
+            "bound_by": by}
+        del x, dt, a, b_in, c_in
+    torch.cuda.empty_cache()
+    emit("ssd_fwd", rel_err=errs, timing=timing,
+         shape=f"H={SSD_H} P={SSD_P} N={SSD_N} chunk<={SSD_CHUNK}")
+    return timing, checked
+
+
+def _ssd_function_grads(fn, xs, dy, dstate) -> list:
+    """dx, ddt, dA, dB, dC of (y . dy) + (state . dstate) through ``fn``."""
+    ts = [t.detach().clone().requires_grad_() for t in xs]
+    y, state = fn(*ts)
+    return list(torch.autograd.grad((y.float() * dy).sum()
+                                    + (state * dstate).sum(), ts))
+
+
+def check_ssd_bwd(x, dt, a, b_in, c_in, chunk, what) -> dict:
+    """Relative errors of dx, ddt, dA, dB and dC through the SSD Function
+    (the backward kernel, then the reductions over b, s and H outside it)
+    against the plain reverse scan with the same reductions and against
+    torch.autograd through the plain forward; nonzero cotangents on y and
+    on the final state.  Each within SSD_RTOL of the reference's largest
+    entry."""
+    from repro_torch.kernels.ssd import (SSD, ssd_bwd_plain, ssd_fwd_plain)
+    b, h, s, p = x.shape
+    gen = torch.Generator(device="cuda").manual_seed(s + 7)
+    dy = torch.randn(b, h, s, p, device="cuda", generator=gen)
+    dstate = torch.randn(b, h, SSD_N, p, device="cuda", generator=gen)
+    xs = (x, dt, a, b_in, c_in)
+    got = _ssd_function_grads(lambda *t: SSD.apply(*t, chunk), xs, dy,
+                              dstate)
+    _, _, carries = ssd_fwd_plain(*xs, chunk=chunk, return_carries=True)
+    dx, ddt, dlog, db_h, dc_h = ssd_bwd_plain(*xs, carries, dy, dstate,
+                                              chunk=chunk)
+    refs = {"plain": [dx, ddt, torch.einsum("bhs,bhs->h", dt, dlog),
+                      db_h.sum(dim=1), dc_h.sum(dim=1)],
+            "autograd": _ssd_function_grads(
+                lambda *t: ssd_fwd_plain(*t, chunk=chunk), xs, dy, dstate)}
+    del carries, dx, ddt, dlog, db_h, dc_h
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"ssd_bwd {what}: non-finite output")
+    errs = {}
+    for src, ref in refs.items():
+        for name, g, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, ref):
+            err = _rel_err(g, e)
+            check(err <= SSD_RTOL, f"ssd_bwd {name} {what} vs {src}: {err}")
+            errs[f"{name}_vs_{src}"] = err
+    return errs
+
+
+def phase_ssd_bwd(train_shapes) -> tuple:
+    """Holds the backward kernel, through the SSD Function's reductions,
+    against the plain reverse scan and against autograd through the plain
+    forward at every (batch, S) of the training plan; times the kernel at
+    the full-length batch."""
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_bwd_plain, ssd_fwd_plain
+    errs, checked = {}, set()
+    for i, (b, s) in enumerate(sorted(train_shapes)):
+        kb, ks, q = _ssd_kernel_shape(b, s)
+        errs[f"{b}x{s}"] = check_ssd_bwd(
+            *_ssd_inputs(kb, ks, torch.float32, 100 + i), q, f"{b}x{s}")
+        checked.add((kb, ks, q))
+        torch.cuda.empty_cache()
+    b, s, q = _ssd_kernel_shape(ZAMBA_B, S_TRAIN)
+    xs = _ssd_inputs(b, s, torch.float32, 61)
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    dy = torch.randn(xs[0].shape, device="cuda", generator=gen)
+    dstate = torch.randn(b, SSD_H, SSD_N, SSD_P, device="cuda", generator=gen)
+    _, _, carries = ssd_fwd_plain(*xs, chunk=q, return_carries=True)
+    args = (*xs, carries, dy, dstate)
+    nbytes, ops = ssd_bwd_work(b, s, q)
+    t_bound, by = bound(nbytes, ops, torch.float32)
+    timing = {"train_8x1024": {
+        "max_abs_err": max(
+            (g - e).abs().max().item() for g, e in zip(
+                ssd_bwd(*args, chunk=q), ssd_bwd_plain(*args, chunk=q))),
+        **times(lambda: ssd_bwd(*args, chunk=q),
+                lambda: ssd_bwd_plain(*args, chunk=q), plain_queued=False),
+        "library_note": "no one PyTorch call computes the SSD backward",
+        "bytes": nbytes, "operations": ops, "bound_ms": t_bound,
+        "bound_by": by}}
+    del args, xs, dy, dstate, carries
+    torch.cuda.empty_cache()
+    emit("ssd_bwd", rel_err=errs, timing=timing)
+    return timing, checked
+
+
+def _zamba_weights():
+    """zamba2-2.7b at full depth and width, fp32 weights drawn on the card
+    from a CUDA generator seeded with SEED, and the seconds that took."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_zoo
+    cfg = get_arch("zamba2-2.7b")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    params = model_zoo.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED),
+        torch.device("cuda"))
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def _replay_steps(reqs, ladder) -> int:
+    from repro_torch.serve import prefill_split
+    return sum(len(r.tokens) - prefill_split(len(r.tokens), ladder)
+               for r in reqs)
+
+
+def phase_engine_zamba(dev: dict, fwd_checked: set, fd_checked: set,
+                       pd_checked: set) -> dict:
+    """Serves full-depth, full-width zamba2-2.7b (fp32, weights from a CUDA
+    generator seeded with SEED) in 8 slots of 576: 16 requests from
+    ``make_requests``, fcfs.  Checks the launch counts (ssd_fwd 54 x
+    prefill calls; flash_decode_fwd 9 x (fused + replay steps); no other
+    kernel), the greedy streams against the same engine at
+    ssm_backend="reference", decode_backend="reference", and serves the
+    first 4 requests once more through the router (a paged replica, whose
+    shared-block KV lives in pages, and a dense one) and moves one request
+    each way between them mid-flight (fewer than the rwkv phase's 8: a
+    fused zamba step takes the host ~90 ms)."""
+    from repro_torch.launch.serve import make_requests, scheduler_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import Replica, Router, prefill_split
+    cfg, params, init_s = _zamba_weights()
+    groups = cfg.n_layers // cfg.attn_every
+    model = model_zoo.build_model(cfg)
+    plain_model = model_zoo.build_model(cfg.replace(
+        ssm_backend="reference", decode_backend="reference"))
+    reqs = make_requests(cfg, 16, PROMPT_LEN, GEN, seed=SEED)
+    # warm-up (first-call costs) and the decode window's load: prompts cut
+    # to their prefill bucket, so that no replay step (~90 ms each) runs
+    at_bucket = [dataclasses.replace(r, tokens=r.tokens[:prefill_split(
+        len(r.tokens), scheduler_config(8, PROMPT_LEN,
+                                        PROMPT_LEN + GEN).ladder())])
+                 for r in reqs[:8]]
+    _serve_model(model, params, [dataclasses.replace(at_bucket[3],
+                                                     max_tokens=4)])
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    out = _serve_model(model, params, reqs)
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    eng, stats = out["engine"], out["stats"]
+    ladder = eng.scheduler.ladder
+    replay = _replay_steps(reqs, ladder)
+    want = {n: 0 for n in counters}
+    want["ssd_fwd"] = cfg.n_layers * len(reqs)
+    want["flash_decode_fwd"] = groups * (stats.decode_steps + replay)
+    check(launches == want, f"zamba serve launches {launches} != {want}")
+    check(all(r.n_generated == q.max_tokens and r.finish_reason == "length"
+              for r, q in zip(out["results"], reqs)),
+          "every zamba request generated its budget")
+    prefills = {_ssd_kernel_shape(1, prefill_split(len(r.tokens), ladder))
+                for r in reqs}
+    check(prefills <= fwd_checked, f"zamba prefill shapes {prefills} not "
+                                   f"all checked in {fwd_checked}")
+    cache_len = eng.cfg.cache_len
+    check({(8, cache_len, ZAMBA_D), (1, cache_len, ZAMBA_D)} <= fd_checked,
+          "zamba decode shapes not checked")
+    counters = _zero_counters()
+    plain = _serve_model(plain_model, params, reqs)
+    check(all(f.launches == 0 for f in counters.values()),
+          "the reference backends launched a kernel")
+    diverged, gaps = check_streams(reqs, out["results"], plain["results"],
+                                   plain["engine"], "zamba")
+    plain_rates = {"decode_tok_s": plain["decode_tok_s"],
+                   "prefill_tok_s": plain["prefill_tok_s"]}
+    del plain
+    # device idle share over a steady decode window: the first 8 requests
+    # (at their buckets) admitted, 6 fused steps untraced, 6 traced
+    cfg_s = lambda **kw: scheduler_config(8, PROMPT_LEN, PROMPT_LEN + GEN,
+                                          **kw)
+    window = Replica(model, params, cfg_s(), device="cuda")
+    for r in at_bucket:
+        window.scheduler.submit(r)
+    while window.admit():
+        pass
+    check(len(window.scheduler.active) == 8, "the decode window's slots")
+    steps6 = lambda: [window.step() for _ in range(6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps6()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps6)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:6]}
+    del window
+
+    # the router: a paged shortest-prompt-first replica (the shared block's
+    # attn_k / attn_v in a pool of pages) and a dense fcfs one
+    oracle = {r.uid: r.tokens for r in out["results"]}
+    paged_kw = dict(paged=True, page_size=PAGE_SIZE, n_pages=N_PAGES)
+    reps = [Replica(model, params, cfg_s(policy="shortest-prompt-first",
+                                         **paged_kw), device="cuda",
+                    name="paged-spf"),
+            Replica(model, params, cfg_s(), device="cuda", name="dense")]
+    check(reps[0].cache["attn_k"].shape[1:3] == (N_PAGES, PAGE_SIZE),
+          "the paged replica's KV is a pool of pages")
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    routed = Router(reps).run(reqs[:4])
+    router_wall = time.perf_counter() - t0
+    for r in routed:
+        check(r.tokens == oracle[r.uid], f"zamba router uid {r.uid}")
+    peak_pages, moves = 0, {}
+    for name, src, dst, req in (("dense_to_paged", reps[1], reps[0],
+                                 reqs[0]),
+                                ("paged_to_dense", reps[0], reps[1],
+                                 reqs[1])):
+        src.scheduler.submit(req)
+        src.pump()  # admit and one fused step
+        src.pump()  # one more step mid-flight
+        [slot] = list(src.scheduler.active)
+        peak_pages = max(peak_pages, reps[0].state.alloc.pages_in_use)
+        src.migrate_slot_to(slot, dst)
+        peak_pages = max(peak_pages, reps[0].state.alloc.pages_in_use)
+        check(not src.scheduler.busy, "source kept the request")
+        while dst.scheduler.busy:
+            dst.pump()
+        [res] = dst.take_finished()
+        check(res.tokens == oracle[req.uid], f"zamba migration {name}")
+        moves[name] = "stream equal"
+    router_launches = {n: f.launches for n, f in counters.items()}
+    admitted = reqs[:4] + reqs[:2]
+    want = {n: 0 for n in counters}
+    want["ssd_fwd"] = cfg.n_layers * len(admitted)
+    want["flash_decode_paged_fwd"] = groups * reps[0].stats.decode_steps
+    want["flash_decode_fwd"] = groups * (reps[1].stats.decode_steps
+                                         + _replay_steps(admitted, ladder))
+    check(router_launches == want,
+          f"zamba router launches {router_launches} != {want}")
+    check(peak_pages > 0, "the paged replica held no page mid-flight")
+    check((8, -(-cache_len // PAGE_SIZE), PAGE_SIZE, N_PAGES, ZAMBA_D)
+          in pd_checked, "zamba paged shape not checked")
+    reps[0].state.alloc.check()
+    check(reps[0].state.alloc.pages_in_use == 0, "zamba pages left in use")
+    emit("engine_zamba", card=dev["nvidia_smi"], arch=cfg.name,
+         n_layers=cfg.n_layers, params=model_zoo.param_count(cfg),
+         weight_init_s=init_s, prefill_tok_s=out["prefill_tok_s"],
+         decode_tok_s=out["decode_tok_s"], p50_ms=out["p50_s"] * 1e3,
+         p95_ms=out["p95_s"] * 1e3, prefill_calls=len(reqs),
+         fused_steps=stats.decode_steps, replay_steps=replay,
+         launches=launches, max_memory_allocated=peak,
+         wall_ms=out["wall_s"] * 1e3,
+         reference_backends={**plain_rates, "diverged": diverged,
+                             "near_tie_gaps": gaps},
+         traced_decode_window={"fused_steps": 6, "live_slots": 8,
+                               "wall_ms_untraced": wall,
+                               "device_busy_ms": busy,
+                               "device_idle_share": 1 - busy / wall,
+                               "top_kernels_ms": top},
+         router={"wall_ms": router_wall * 1e3,
+                 "routed": {r.name: r.stats.admitted for r in reps},
+                 "admission_waits": reps[0].state.refusals,
+                 "pages_in_use_mid_flight": peak_pages,
+                 "table_uploads": reps[0].state.table_uploads,
+                 "migrations": moves, "launches": router_launches})
+    del reps, model, plain_model, params, eng, out
+    torch.cuda.empty_cache()
+    return {"serve_zamba": {k: launches[k] for k in
+                            ("ssd_fwd", "flash_decode_fwd")},
+            "router_zamba": {k: router_launches[k] for k in
+                             ("ssd_fwd", "flash_decode_fwd",
+                              "flash_decode_paged_fwd")}}
+
+
+def zamba_train_config(backend: str = "kernel"):
+    from repro_torch.configs import (BatchWarmupConfig, OptimizerConfig,
+                                     SLWConfig, TrainConfig, get_arch)
+    tokens = ZAMBA_STEPS * ZAMBA_B * S_TRAIN
+    return TrainConfig(
+        model=get_arch("zamba2-2.7b").replace(ssm_backend=backend),
+        optimizer=OptimizerConfig(
+            lr=6e-4, schedule="token_cosine", warmup_steps=6,
+            warmup_tokens=6 * ZAMBA_B * S_TRAIN, total_steps=ZAMBA_STEPS,
+            total_tokens=tokens),
+        slw=SLWConfig(enabled=True, pacing="linear", start_seq_len=8,
+                      duration_steps=12, round_multiple=8, max_buckets=12),
+        batch_warmup=BatchWarmupConfig(enabled=True, start_batch=4,
+                                       warmup_tokens=tokens // 20),
+        seq_len=S_TRAIN, global_batch=ZAMBA_B, seed=SEED, remat="full",
+        eval_interval=ZAMBA_STEPS)
+
+
+def _planted_ssd_fault():
+    """Patches the SSD Function's backward so the per-head dB comes out of
+    the kernel x (1 + SSD_FAULT): a wrong backward the gradient check must
+    catch."""
+    from unittest import mock
+
+    from repro_torch.kernels.ssd import ops
+    real = ops.ssd_bwd
+
+    def faulty(*args, **kw):
+        dx, ddt, dlog, db_h, dc_h = real(*args, **kw)
+        return dx, ddt, dlog, db_h * (1 + SSD_FAULT), dc_h
+    return mock.patch.object(ops, "ssd_bwd", faulty)
+
+
+SSM_LEAVES = ("wx", "wb", "wc", "wdt", "a_log", "dt_bias")
+
+
+def _compare_zamba_grads(model, params, batch, eps: float, limit: float,
+                         host: bool = False, fault: bool = False) -> dict:
+    """:func:`_compare_grads_at_eps` against ssm_backend="reference", remat
+    "full" on both: the Mamba-2 projections, a_log and dt_bias of every
+    layer need a gradient.  ``fault``: the planted dB x (1 + SSD_FAULT)."""
+    out, _ = _compare_grads_at_eps(
+        model, {"ssm_backend": "reference"}, params, batch, eps, limit,
+        lambda name: name.split(".")[-1] in SSM_LEAVES,
+        (_planted_ssd_fault, {"db_scale": 1 + SSD_FAULT}) if fault else None,
+        host)
+    return out
+
+
+def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
+    """Trains zamba2-2.7b at full width and depth through the Trainer
+    (remat "full", weights from a CUDA generator seeded with SEED): 20 SLW
+    steps and one full-length eval, then 2 full-length steps untraced and
+    2 under the profiler (6.5 s each).  Against ssm_backend="reference": every gradient
+    leaf of the first step's batch at the initial weights and of the last
+    step's (8 x 1024) at the trained weights, at the norms' eps raised to
+    ZAMBA_GRAD_EPS with a planted fault that must break the limit, and
+    reported only at the model's own; then the first 8 steps' losses from
+    the same initial weights.  The weights
+    kept for those comparisons wait on the host: two more 9.7 GB copies
+    beside the trainer's 38.8 GB of state and its activations would not
+    fit on the card."""
+    from repro_torch.core.regulators import predict_trajectory
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import transforms as optim_tx
+    tc = zamba_train_config()
+    trainer = Trainer(tc, eval_batch=ZAMBA_EVAL, device="cuda")
+    to_host = lambda tree: optim_tx.tree_map(
+        lambda t: t.detach().to("cpu", copy=True), tree)
+    to_card = lambda tree: optim_tx.tree_map(lambda t: t.to("cuda"), tree)
+    init = to_host(trainer.state["params"])
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.run()
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = tc.model.n_layers
+
+    check(res.steps == ZAMBA_STEPS and not res.diverged,
+          "zamba trained 20 steps")
+    check(all(math.isfinite(x) for x in res.loss_history),
+          "zamba finite losses")
+    plans = predict_trajectory(tc, ZAMBA_STEPS)
+    ran = list(zip(res.seqlen_history, res.batch_history, res.lr_history))
+    check(ran == [(p.seq_len, p.batch_size, p.lr) for p in plans],
+          "the zamba run's plans are predict_trajectory's")
+    n_evals = len(res.val_ppl_history)
+    check(n_evals == 1, f"{n_evals} zamba evals")
+    # remat "full": each step runs every layer's forward twice (the
+    # recompute in the backward launches the kernel again)
+    want = {n: 0 for n in counters}
+    want["ssd_fwd"] = n_layers * (2 * ZAMBA_STEPS + n_evals)
+    want["ssd_bwd"] = n_layers * ZAMBA_STEPS
+    check(launches == want, f"zamba train launches {launches} != {want}")
+    shapes = {_ssd_kernel_shape(p.batch_size, p.seq_len) for p in plans}
+    check(shapes <= bwd_checked, f"bwd shapes {shapes - bwd_checked}")
+    shapes.add(_ssd_kernel_shape(ZAMBA_EVAL, S_TRAIN))
+    check(shapes <= fwd_checked, f"fwd shapes {shapes - fwd_checked}")
+
+    full = [i for i, s in enumerate(res.seqlen_history) if s == S_TRAIN]
+    durations = trainer.watchdog.durations
+    full_s = [durations[i] for i in full]
+    full_tokens = sum(res.batch_history[i] * S_TRAIN for i in full)
+
+    def steps2():
+        for _ in range(2):
+            trainer.run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps2()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps2)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:8]}
+    emit("train_zamba", card=dev["nvidia_smi"], arch=tc.model.name,
+         n_layers=n_layers, params=model_zoo.param_count(tc.model),
+         steps=res.steps, tokens=res.tokens, full_length_steps=len(full),
+         tokens_per_s_full_length=full_tokens / sum(full_s),
+         p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
+         first_loss=res.loss_history[0], last_loss=res.loss_history[-1],
+         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         launches=launches, max_memory_allocated=peak,
+         wall_s=res.wall_time_s,
+         traced_2_full_steps={"wall_ms_untraced": wall,
+                              "device_busy_ms": busy,
+                              "device_idle_share": 1 - busy / wall,
+                              "top_kernels_ms": top})
+
+    # gradients: the kernel model against the reference one, leaf by leaf,
+    # at the first step's batch and the initial weights, and at the last
+    # step's (full-length) batch and the trained weights
+    trained = to_host(trainer.state["params"])
+    trainer.state = None  # frees the params and the Adam moments
+    torch.cuda.empty_cache()
+    grads = {}
+    for weights, i, is_trained in ((init, 0, False),
+                                   (trained, ZAMBA_STEPS - 1, True)):
+        batch, _ = trainer.stack.apply(trainer.pipeline.batch_at(i), plans[i])
+        batch = trainer.to_device(batch)
+        params = to_card(weights)
+        grads[f"{len(batch['tokens'])}x{plans[i].seq_len}"] = {
+            "weights": "trained" if is_trained else "initial",
+            f"eps_{ZAMBA_GRAD_EPS:g}": _compare_zamba_grads(
+                trainer.model, params, batch, ZAMBA_GRAD_EPS, GRAD_RTOL,
+                fault=True),
+            f"eps_{tc.model.norm_eps:g}": _compare_zamba_grads(
+                trainer.model, params, batch, tc.model.norm_eps, math.inf,
+                host=not is_trained)}
+        del params
+        torch.cuda.empty_cache()
+    emit("train_zamba_grads", leaves=len(_leaf_names(init)),
+         norm_eps=tc.model.norm_eps, batches=grads)
+    del trained, trainer, weights
+    torch.cuda.empty_cache()
+
+    # the first 8 steps with the reference backend from the same weights
+    check_parity_steps(zamba_train_config("reference"), to_card(init), res,
+                       "zamba")
+    del init
+    return {"ssd_fwd": launches["ssd_fwd"], "ssd_bwd": launches["ssd_bwd"]}
 
 
 
@@ -1796,12 +2473,28 @@ def main() -> int:
     rwkv_serve = phase_engine_rwkv(dev, wkv_fwd_checked)
     torch.cuda.empty_cache()
     rwkv_train = phase_train_rwkv(dev, wkv_fwd_checked, wkv_bwd_checked)
+    torch.cuda.empty_cache()
+
+    zamba_prefills = {(1, prefill_split(len(r.tokens), ladder))
+                      for r in make_requests(get_arch("zamba2-2.7b"), 16,
+                                             PROMPT_LEN, GEN, seed=SEED)}
+    zamba_train_shapes = {(p.batch_size, p.seq_len) for p in
+                          predict_trajectory(zamba_train_config(),
+                                             ZAMBA_STEPS)}
+    ssd_fwd_timing, ssd_fwd_checked = phase_ssd_fwd(
+        zamba_prefills, zamba_train_shapes | {(ZAMBA_EVAL, S_TRAIN)})
+    ssd_bwd_timing, ssd_bwd_checked = phase_ssd_bwd(zamba_train_shapes)
+    zamba_serve = phase_engine_zamba(dev, ssd_fwd_checked, fd_checked,
+                                     pd_checked)
+    torch.cuda.empty_cache()
+    zamba_train = phase_train_zamba(dev, ssd_fwd_checked, ssd_bwd_checked)
 
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     by_path = {"serve": serve_launches, "serve_paged": paged_launches,
                "router": router_launches, "train": train_launches,
-               **rwkv_serve, "train_rwkv": rwkv_train}
+               **rwkv_serve, "train_rwkv": rwkv_train, **zamba_serve,
+               "train_zamba": zamba_train}
     rows = [("flash_attention_fwd", "flash_attention_fwd.cu",
              "flash_attention/kernel.py:168", fa_timing["float32_1x512"]),
             ("flash_attention_bwd_preprocess", "flash_attention_bwd.cu",
@@ -1817,7 +2510,11 @@ def main() -> int:
             ("wkv6_fwd", "wkv6.cu", "rwkv6/kernel.py:113",
              wkv_fwd_timing["serve_1x512"]),
             ("wkv6_bwd", "wkv6.cu", "rwkv6/kernel.py:235",
-             wkv_bwd_timing["train_8x1024"])]
+             wkv_bwd_timing["train_8x1024"]),
+            ("ssd_fwd", "ssd.cu", "ssd/kernel.py:116",
+             ssd_fwd_timing["serve_1x512"]),
+            ("ssd_bwd", "ssd.cu", "ssd/kernel.py:234",
+             ssd_bwd_timing["train_8x1024"])]
     entries = []
     for name, source, rep, t in rows:
         counts = {path: c[name] for path, c in by_path.items() if name in c}

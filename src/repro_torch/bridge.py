@@ -2,8 +2,10 @@
 
 The JAX model's parameters, taken to the host as a nested dict of numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``), become the port's
-tree: the same keys, ``layers/*`` unstacked along axis 0 into a list of
-per-layer dicts, every shape checked against the port's ``ParamDef``s.
+tree: the same keys, each stacked subtree the port keeps as a list
+(``layers``; Zamba-2's ``mamba_layers``) unstacked along axis 0 into a
+list of per-layer dicts, every shape checked against the port's
+``ParamDef``s.
 A train state ``{"params", "opt", "step"}`` maps the same way, the chain
 state leaf for leaf.  Nothing here imports JAX.
 """
@@ -44,13 +46,14 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
                       device: torch.device) -> Any:
     """The port's parameters (fp32 tensors on ``device``) from the JAX tree."""
     defs = model_zoo.model_defs(cfg)
-    top = {k: v for k, v in defs.items() if k != "layers"}
-    out = _convert(top, {k: v for k, v in tree.items() if k != "layers"}, "",
+    stacked = [k for k, v in defs.items() if isinstance(v, list)]
+    out = _convert({k: v for k, v in defs.items() if k not in stacked},
+                   {k: v for k, v in tree.items() if k not in stacked}, "",
                    device)
-    stacked = tree["layers"]
-    out["layers"] = [_convert(layer_defs, _unstack(stacked, i), f"/layers/{i}",
-                              device)
-                     for i, layer_defs in enumerate(defs["layers"])]
+    for key in stacked:
+        out[key] = [_convert(layer_defs, _unstack(tree[key], i),
+                             f"/{key}/{i}", device)
+                    for i, layer_defs in enumerate(defs[key])]
     return out
 
 

@@ -4,9 +4,9 @@ Answers to ``repro/configs/base.py``: ``ModelConfig`` (lines 15-113), and
 ``SLWConfig``, ``BatchWarmupConfig``, ``RegulatorSpec``,
 ``OptimizerConfig`` and ``TrainConfig`` (lines 133-331).  The fields are
 copied, not imported, so this package never imports ``repro``.
-``ModelConfig`` keeps the fields the dense and rwkv families read; ``TrainConfig``
-leaves out ``gns`` and the fields only GNS, sharding and checkpoint
-cadence read, which come with their slices.
+``ModelConfig`` keeps the fields the dense, rwkv and hybrid families
+read; ``TrainConfig`` leaves out ``gns`` and the fields only GNS,
+sharding and checkpoint cadence read, which come with their slices.
 """
 from __future__ import annotations
 
@@ -36,6 +36,19 @@ class ModelConfig:
     # single-token decode attention: "reference" (plain torch) | "kernel"
     # (the CUDA split-KV kernel on CUDA tensors, plain on CPU tensors)
     decode_backend: str = "reference"
+    rope_theta: float = 10000.0
+    # SSM, Mamba-2 / SSD (``base.py:63-73``); SSD train/prefill backend:
+    # "reference" (plain torch) | "kernel" (the CUDA kernels on CUDA
+    # tensors, their plain versions on CPU tensors)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    conv_kernel: int = 4
+    ssm_backend: str = "reference"
+    # hybrid (zamba2, ``base.py:74-76``): one shared attention + MLP block
+    # applied after every ``attn_every`` SSM layers
+    attn_every: int = 0
     # rwkv6 (``base.py:79-85``); WKV train/prefill backend: "reference"
     # (plain torch) | "kernel" (the CUDA kernels on CUDA tensors, their
     # plain versions on CPU tensors)

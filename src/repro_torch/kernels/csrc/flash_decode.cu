@@ -28,7 +28,8 @@
 // (gm = max m; o = sum o*exp(m-gm); l = sum l*exp(m-gm)).  A chunk wholly
 // past lengths[b] returns before it loads anything, and the merge never
 // reads it.  Inside a block each warp takes every fourth key, a lane holds
-// D/32 elements at stride 32 (each load instruction of a warp reads one
+// ceil(D / 32) elements at stride 32 (D = 64, 80 or 128; at 80 the third
+// is guarded off on lanes 16-31; each load instruction of a warp reads one
 // contiguous row segment), dot products reduce through warp shuffles,
 // softmax runs per chunk in shared memory, and the four warps' P.V sums
 // meet in shared memory.
@@ -123,18 +124,22 @@ __device__ __forceinline__ void split_body(const T* __restrict__ q,
                                            float* __restrict__ pm,
                                            float* __restrict__ pl,
                                            float scale) {
-  constexpr int E = D / 32;  // elements per lane, at stride 32
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // elements per lane, at stride 32; where D % 32 != 0 (D = 80) the last
+  // one exists only on lanes with lane + 32 (E - 1) < D, and `has` guards
+  // every load, FMA and store of it (a constant true where D % 32 == 0)
+  constexpr int E = (D + 31) / 32;
+  const auto has = [&](int e) { return D % 32 == 0 || lane + 32 * e < D; };
   __shared__ float p_s[G][CHUNK];
   __shared__ float red[WARPS][G][D];
   __shared__ float m_s[G], l_s[G];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
   float qr[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      qr[g][e] = to_f32(q[(cell * G + g) * D + lane + 32 * e]);
+      qr[g][e] = has(e) ? to_f32(q[(cell * G + g) * D + lane + 32 * e])
+                        : 0.f;
 
   // scores: s = (q . k) * scale, one key per warp per unrolled slot;
   // an unowned key is a zero key, not loaded
@@ -147,7 +152,7 @@ __device__ __forceinline__ void split_body(const T* __restrict__ q,
       const T* row = ok ? rows.key(j) : nullptr;
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        kr[u][e] = ok ? to_f32(row[lane + 32 * e]) : 0.f;
+        kr[u][e] = ok && has(e) ? to_f32(row[lane + 32 * e]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -156,7 +161,8 @@ __device__ __forceinline__ void split_body(const T* __restrict__ q,
       for (int g = 0; g < G; ++g) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < E; ++e) dot += qr[g][e] * kr[u][e];
+        for (int e = 0; e < E; ++e)
+          if (has(e)) dot += qr[g][e] * kr[u][e];
         dot = warp_sum(dot);
         if (lane == 0 && j < n) p_s[g][j] = dot * scale;
       }
@@ -198,7 +204,7 @@ __device__ __forceinline__ void split_body(const T* __restrict__ q,
       const T* row = ok ? rows.value(j) : nullptr;
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        vr[u][e] = ok ? to_f32(row[lane + 32 * e]) : 0.f;
+        vr[u][e] = ok && has(e) ? to_f32(row[lane + 32 * e]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -208,7 +214,8 @@ __device__ __forceinline__ void split_body(const T* __restrict__ q,
         for (int g = 0; g < G; ++g) {
           const float p = p_s[g][j];
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] += p * vr[u][e];
+          for (int e = 0; e < E; ++e)
+            if (has(e)) acc[g][e] += p * vr[u][e];
         }
       }
     }
@@ -216,7 +223,8 @@ __device__ __forceinline__ void split_body(const T* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < E; ++e) red[warp][g][lane + 32 * e] = acc[g][e];
+    for (int e = 0; e < E; ++e)
+      if (has(e)) red[warp][g][lane + 32 * e] = acc[g][e];
   __syncthreads();
 
   for (int idx = threadIdx.x; idx < G * D; idx += THREADS) {
@@ -332,8 +340,10 @@ template <class F>
 cudaError_t dispatch(int dtype, int d, int g, F launch) {
   bool ok = false;
   if (dtype == 0 && d == 64) ok = by_group<float, 64>(g, launch);
+  else if (dtype == 0 && d == 80) ok = by_group<float, 80>(g, launch);
   else if (dtype == 0 && d == 128) ok = by_group<float, 128>(g, launch);
   else if (dtype == 1 && d == 64) ok = by_group<__nv_bfloat16, 64>(g, launch);
+  else if (dtype == 1 && d == 80) ok = by_group<__nv_bfloat16, 80>(g, launch);
   else if (dtype == 1 && d == 128) ok = by_group<__nv_bfloat16, 128>(g, launch);
   return ok ? cudaGetLastError() : cudaErrorInvalidValue;
 }

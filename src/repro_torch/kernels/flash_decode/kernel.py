@@ -22,7 +22,7 @@ from repro_torch.kernels import on_card
 from repro_torch.kernels._build import check, library
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 GROUP_SIZES = (1, 2, 4, 8)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

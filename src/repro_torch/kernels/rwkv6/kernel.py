@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import on_card
+from repro_torch.kernels import check_f32, on_card, stream_of
 from repro_torch.kernels._build import check, library
 
 NEG_INF = -1e30
@@ -170,18 +170,6 @@ def _check(r, k, v, log_w, u, chunk):
         raise ValueError(f"shape {tuple(r.shape)} too large")
 
 
-def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
-    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32
-            or not t.is_contiguous() or t.device != device):
-        raise ValueError(f"want {name} {tuple(shape)} float32 contiguous on "
-                         f"{device}, got {tuple(t.shape)} {t.dtype} on "
-                         f"{t.device}")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              log_w: torch.Tensor, u: torch.Tensor, *, chunk: int = 32,
              return_carries: bool = False):
@@ -203,7 +191,7 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
         uf.data_ptr(), y.data_ptr(), state.data_ptr(),
         carries.data_ptr() if return_carries else None, b, h, s, chunk,
-        DTYPE_CODES[r.dtype], DTYPE_CODES[log_w.dtype], _stream(r)),
+        DTYPE_CODES[r.dtype], DTYPE_CODES[log_w.dtype], stream_of(r)),
         "wkv6_fwd")
     wkv6_fwd.launches += 1
     return (y, state, carries) if return_carries else (y, state)
@@ -223,9 +211,9 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(r, k, v, log_w, u, chunk)
     b, h, s, d = r.shape
     dev = r.device
-    _check_f32("carries", carries, (b, h, s // chunk, d, d), dev)
-    _check_f32("dy", dy, (b, h, s, d), dev)
-    _check_f32("dstate", dstate, (b, h, d, d), dev)
+    check_f32("carries", carries, (b, h, s // chunk, d, d), dev)
+    check_f32("dy", dy, (b, h, s, d), dev)
+    check_f32("dstate", dstate, (b, h, d, d), dev)
     uf = u.float().contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     dr, dk, dv, dlw = (torch.empty((b, h, s, d), **f32) for _ in range(4))
@@ -235,7 +223,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         uf.data_ptr(), carries.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
         du.data_ptr(), b, h, s, chunk, DTYPE_CODES[r.dtype],
-        DTYPE_CODES[log_w.dtype], _stream(r)), "wkv6_bwd")
+        DTYPE_CODES[log_w.dtype], stream_of(r)), "wkv6_bwd")
     wkv6_bwd.launches += 1
     return dr, dk, dv, dlw, du
 

@@ -8,6 +8,8 @@ engine (default), the router over replicas (``--replicas N`` or
       --reduced --device cpu --paged --page-size 16 --n-pages 7
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --reduced --device cpu --batch 2 --requests 4 --prompt-len 24
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --reduced --device cpu --batch 2 --requests 4 --prompt-len 24 --paged
 
 ``--batch`` is the slot count of each replica (the batch of the legacy
 path).  The engine admits ``--requests`` ragged requests through the

@@ -8,12 +8,14 @@ Usable as a library (``train(tc, ...)``, ``Trainer``) and as a CLI:
       --reduced --device cpu --steps 20 --seq 64 --batch 4 --slw
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
       --reduced --device cpu --steps 12 --seq 64 --batch 4 --slw
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+      --reduced --device cpu --steps 12 --seq 64 --batch 4 --slw
 
 The loop is the paper's joint recipe: the regulator stack plans the step
 (seqlen bucket, batch size, LR, grad-clip scale) -> the full-length host
 batch is row-sliced and truncated/repacked -> the train step (loss, its
-gradient through the flash-attention or WKV-6 kernels, the AdamW chain) -> loss
-ratio and Adam-variance telemetry go back into the stack.  Eval, drain,
+gradient through the flash-attention, WKV-6 or SSD kernels, the AdamW
+chain) -> loss ratio and Adam-variance telemetry go back into the stack.  Eval, drain,
 the watchdog and telemetry recording are ``TrainerHook``s.
 
 The device defaults to CUDA and the run fails on a machine without one

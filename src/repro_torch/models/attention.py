@@ -9,8 +9,9 @@ differentiates; ``decode_backend`` "kernel" runs the CUDA split-KV decode
 kernel for single-token steps, "reference" the plain masked softmax over
 the whole cache (a paged cache is gathered through its page table first;
 the kernel walks the table itself).  On CPU tensors the kernel backends
-run the kernels' plain versions.  Rotary positions are not ported yet:
-the served presets use learned positions.
+run the kernels' plain versions.  With ``pos_emb="rope"`` q and k are
+rotated at their positions (``attention.py:53-67``): (S,) in training and
+prefill, per slot (B, s_q) in decode.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.kernel import gather_pages
 from repro_torch.kernels.flash_decode.ops import (flash_decode,
                                                   flash_decode_paged)
-from repro_torch.models.layers import ParamDef, rms_norm
+from repro_torch.models.layers import ParamDef, apply_rope, rms_norm
 
 NEG_INF = -1e30
 
@@ -48,9 +49,11 @@ def attention_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return defs
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
-    if cfg.pos_emb == "rope":
-        raise NotImplementedError("rotary positions are not ported yet")
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: Optional[torch.Tensor] = None):
+    """q, k, v (B, S, heads, D); ``positions`` (S,) or (B, S) rotate q and
+    k where ``cfg.pos_emb`` is "rope" (which needs them) and are unused
+    otherwise."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
@@ -59,6 +62,11 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if cfg.pos_emb == "rope":
+        if positions is None:
+            raise ValueError('pos_emb="rope" needs the positions')
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -120,8 +128,10 @@ def _context(q, k, v, cfg: ModelConfig, block_kv: int) -> torch.Tensor:
 def full_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                    cfg: ModelConfig, block_kv: int = 512
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention over the whole sequence -> (out, (k, v))."""
-    q, k, v = _project_qkv(params, x, cfg)
+    """Causal self-attention over the whole sequence, positions 0 .. S - 1
+    -> (out, (k, v))."""
+    q, k, v = _project_qkv(params, x, cfg,
+                           torch.arange(x.shape[1], device=x.device))
     ctx = _context(q, k, v, cfg, block_kv)
     return torch.einsum("bshk,hkd->bsd", ctx, params["wo"]), (k, v)
 
@@ -214,7 +224,9 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = h // kvh
     per_slot = pos.dim() == 1
-    q, k, v = _project_qkv(params, x, cfg)
+    offs = torch.arange(s_q, device=x.device)
+    positions = pos[:, None] + offs if per_slot else pos + offs
+    q, k, v = _project_qkv(params, x, cfg, positions)
     if page_table is not None:
         if not per_slot or s_q != 1:
             raise ValueError(f"paged decode is per-slot single-token only "
@@ -245,9 +257,8 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
         s_max = kc.shape[1]
         qg = q.reshape(b, s_q, kvh, g, d) * (1.0 / math.sqrt(d))
         s = torch.einsum("bqkgd,bjkd->bkgqj", qg, kc).float()
-        offs = torch.arange(s_q, device=x.device)
-        counts = (pos[:, None] + offs[None, :] if per_slot
-                  else (pos + offs)[None, :]) + 1  # valid-entry counts
+        counts = (positions if per_slot
+                  else positions[None, :]) + 1  # valid-entry counts
         valid = (torch.arange(s_max, device=x.device)[None, None, :]
                  < counts[:, :, None])  # (B or 1, s_q, S_max)
         s = s.masked_fill(~valid[:, None, None], NEG_INF)

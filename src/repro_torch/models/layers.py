@@ -1,4 +1,4 @@
-"""Parameter declarations and common layers (``repro/models/layers.py:19-140, 173-247``).
+"""Parameter declarations and common layers (``repro/models/layers.py:19-247``).
 
 A model is declared as a nested dict of :class:`ParamDef` leaves; the same
 tree gives materialized fp32 parameters (:func:`init_params`) and the
@@ -19,8 +19,8 @@ class ParamDef(NamedTuple):
     """Declaration of one parameter leaf (``layers.py:19``)."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones | embed
-    scale: float = 1.0    # stddev multiplier for "normal" / "embed"
+    init: str = "normal"  # normal | zeros | ones | embed | uniform_conv
+    scale: float = 1.0    # stddev for "normal" / "embed"; the uniform's limit
 
     def materialize(self, generator: torch.Generator,
                     device: torch.device) -> torch.Tensor:
@@ -37,6 +37,11 @@ class ParamDef(NamedTuple):
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0,
                                         generator=generator)
             return (self.scale * t).to(device)
+        if self.init == "uniform_conv":  # conv1d default: U(-1/sqrt(k), 1/sqrt(k))
+            t = torch.empty(self.shape, dtype=torch.float32,
+                            device=generator.device)
+            t.uniform_(-self.scale, self.scale, generator=generator)
+            return t.to(device)
         raise ValueError(f"unknown init {self.init!r}")
 
 
@@ -99,6 +104,28 @@ def norm_def(d: int, kind: str) -> Dict[str, ParamDef]:
     if kind == "rmsnorm":
         return {"scale": ParamDef((d,), "ones")}
     return {"scale": ParamDef((d,), "ones"), "bias": ParamDef((d,), "zeros")}
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    """The (D / 2,) rotary frequencies (``layers.py:152-154``)."""
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary positions, rotate-half convention (``layers.py:157-168``):
+    x (..., S, H, D) with positions (S,) or (..., S), in fp32 inside."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)
+    angles = positions[..., None].float() * freqs  # (..., S, D / 2)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over the heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def mlp_def(d_model: int, d_ff: int, kind: str) -> Dict[str, ParamDef]:

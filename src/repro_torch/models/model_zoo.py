@@ -1,6 +1,6 @@
 """Uniform model API (``repro/models/model_zoo.py:18-109``): build, init,
-count, and the slot-cache specs of continuous batching, for the dense and
-rwkv families."""
+count, and the slot-cache specs of continuous batching, for the dense,
+rwkv and hybrid (Zamba-2) families."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -11,8 +11,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.rwkv6 import RWKV6LM, rwkv6_defs
 from repro_torch.models.transformer import DenseLM, dense_defs
+from repro_torch.models.zamba2 import Zamba2LM, zamba2_defs
 
-FAMILIES = {"dense": (DenseLM, dense_defs), "rwkv": (RWKV6LM, rwkv6_defs)}
+FAMILIES = {"dense": (DenseLM, dense_defs), "rwkv": (RWKV6LM, rwkv6_defs),
+            "hybrid": (Zamba2LM, zamba2_defs)}
 
 
 def _family(cfg: ModelConfig):
@@ -29,7 +31,8 @@ def model_defs(cfg: ModelConfig):
 def build_model(cfg: ModelConfig, remat: str = "full", **options):
     """The model of ``cfg``; ``remat`` ("none" | "full") is the activation
     checkpointing of its ``loss``; ``options`` go to the family's class
-    (``block_kv``, the dense family's blockwise-attention block)."""
+    (``block_kv``, the blockwise-attention block of the dense and hybrid
+    families)."""
     return _family(cfg)[0](cfg=cfg, remat=remat, **options)
 
 

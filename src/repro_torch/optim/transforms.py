@@ -101,9 +101,9 @@ def _no_state(params):
 
 def clip_global_norm(max_norm: float) -> GradientTransform:
     """fp32, measure the global norm, clip to ``max_norm *
-    hyper["clip_scale"]`` (``max_norm <= 0`` measures only).  Telemetry:
-    ``grad_norm`` is the raw pre-clip norm, ``grad_norm_clipped`` the
-    post-clip one."""
+    hyper["clip_scale"]`` (``max_norm <= 0`` measures only), in place on
+    fp32 updates.  Telemetry: ``grad_norm`` is the raw pre-clip norm,
+    ``grad_norm_clipped`` the post-clip one."""
 
     def update(updates, state, params, hyper):
         leaves = [g.float() for g in tree_leaves(updates)]
@@ -114,8 +114,8 @@ def clip_global_norm(max_norm: float) -> GradientTransform:
             scale = torch.clamp(limit / gnorm.clamp_min(1e-12), max=1.0)
         else:
             scale = torch.ones((), device=gnorm.device)
-        out = torch._foreach_mul(leaves, scale)
-        return (tree_unflatten(updates, out), state,
+        torch._foreach_mul_(leaves, scale)
+        return (tree_unflatten(updates, leaves), state,
                 {"grad_norm": gnorm, "grad_norm_clipped": gnorm * scale})
 
     return GradientTransform("clip", _no_state, update)
@@ -145,9 +145,13 @@ def scale_by_adam(cfg: OptimizerConfig) -> GradientTransform:
         torch._foreach_add_(m, g, alpha=1.0 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_add_(v, torch._foreach_mul(g, g), alpha=1.0 - b2)
-        denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
+        # one temporary the size of the params at a time besides the output
+        denom = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
-        out = torch._foreach_div(torch._foreach_div(m, bc1), denom)
+        out = torch._foreach_div(m, bc1)
+        torch._foreach_div_(out, denom)
+        del denom
         tel = {**variance_stats(v), **momentum_stats(m)}
         new_state = {"m": state["m"], "v": state["v"], "count": count}
         return tree_unflatten(updates, out), new_state, tel

@@ -18,9 +18,11 @@ page table:
   scheduler's ``reserve`` hook), so growth on decode never fails: page
   exhaustion is a wait at admission, not a fault mid-decode.
 
-Recurrent state leaves (RWKV-6's ``wkv`` and token-shift rows) have no
-"seq" axis and stay dense, one row per slot, in the same dict; for RWKV-6
-the paged state is a structural no-op (``paging.py:22-26``).
+Recurrent state leaves (RWKV-6's ``wkv`` and token-shift rows, Zamba-2's
+SSM and conv states) have no "seq" axis and stay dense, one row per slot,
+in the same dict; for RWKV-6 the paged state is a structural no-op
+(``paging.py:22-26``), for Zamba-2 only the shared block's ``attn_k`` /
+``attn_v`` (groups, n_pages, page_size, KV, D) are paged.
 
 The allocator lives on the host.  The device table is uploaded only when
 the host table changed (``decode``), not every step.  Prefill and replay

@@ -2,10 +2,12 @@
 
 The slot cache is a dict of leaves, each with the logical axes the model's
 ``cache_axes`` gives it: the dense model's ``k``/``v`` (L, n_slots, S, KV,
-D), RWKV-6's ``wkv`` (L, n_slots, H, D, D) and token-shift rows, plus
-``pos`` (n_slots,) int64 and ``active`` (n_slots,) bool.  Every method goes
-leaf by leaf over the "batch" (slot) axis of each leaf, with no per-family
-branch.  The reference jits its slot surgery with the buffer donated; here
+D), RWKV-6's ``wkv`` (L, n_slots, H, D, D) and token-shift rows,
+Zamba-2's Mamba-2 states (L, n_slots, ...) and shared-block
+``attn_k``/``attn_v`` (G, n_slots, S, KV, D), plus ``pos`` (n_slots,)
+int64 and ``active`` (n_slots,) bool.  Every method goes leaf by leaf over
+the "batch" (slot) axis of each leaf, wherever it stands, with no
+per-family branch.  The reference jits its slot surgery with the buffer donated; here
 it happens in place on the device, and each method returns the same dict.
 Model-format caches (what ``prefill`` returns, and what ``gather`` hands to
 a migration) carry a 0-dim ``pos`` shared by their rows.  The paged state

@@ -5,7 +5,7 @@ fallback, and no ported-looking option that quietly does nothing.
   import, and none of them pulls in ``repro`` or a ``repro.*`` module.
 * The entry points default to CUDA and raise where there is none.
 * On CPU tensors the kernel wrappers (flash attention, flash decode,
-  WKV-6) run their plain versions and count no launch.
+  WKV-6, SSD) run their plain versions and count no launch.
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo.
 """
@@ -46,6 +46,28 @@ def test_port_imports_without_jax_or_repro():
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 25  # every module of the package was imported
+
+
+_IMPORT_ZAMBA = r"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {src!r})
+for name in ("repro_torch.configs.zamba2_2p7b", "repro_torch.kernels.ssd",
+             "repro_torch.kernels.ssd.kernel", "repro_torch.kernels.ssd.ops",
+             "repro_torch.models.mamba2", "repro_torch.models.zamba2"):
+    importlib.import_module(name)
+from repro_torch.configs import get_arch
+from repro_torch.models import model_zoo
+assert model_zoo.param_count(get_arch("zamba2-2.7b")) == 2422670240
+assert not [k for k in sys.modules if k == "repro" or k.startswith("repro.")]
+"""
+
+
+def test_zamba_modules_import_without_jax():
+    r = subprocess.run([sys.executable, "-c",
+                        _IMPORT_ZAMBA.format(src=str(SRC))],
+                       capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert r.returncode == 0, r.stderr
 
 
 def test_no_jax_or_repro_import_in_sources():
@@ -107,6 +129,19 @@ def test_rwkv_clis_default_to_cuda(monkeypatch, cli):
                         "--prompt-len", "8", "--gen", "2"])
         else:
             train.main(["--arch", "rwkv6-7b", "--reduced", "--steps", "1",
+                        "--batch", "2", "--seq", "16"])
+
+
+@pytest.mark.parametrize("cli", ["serve", "train"])
+def test_zamba_clis_default_to_cuda(monkeypatch, cli):
+    from repro_torch.launch import serve, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if cli == "serve":
+            serve.main(["--arch", "zamba2-2.7b", "--reduced", "--batch", "1",
+                        "--prompt-len", "8", "--gen", "2"])
+        else:
+            train.main(["--arch", "zamba2-2.7b", "--reduced", "--steps", "1",
                         "--batch", "2", "--seq", "16"])
 
 
@@ -196,6 +231,34 @@ def test_cpu_tensors_through_wkv6_count_no_launch():
     (y.sum() + state.sum()).backward()
     assert x.grad is not None and x.grad.shape == x.shape
     assert (wkv6_fwd.launches, wkv6_bwd.launches) == before
+
+
+def test_cpu_tensors_through_ssd_count_no_launch():
+    from repro_torch.kernels.ssd import (ssd, ssd_bwd, ssd_bwd_plain,
+                                         ssd_fwd, ssd_fwd_plain)
+    before = (ssd_fwd.launches, ssd_bwd.launches)
+    g = torch.Generator().manual_seed(3)
+    # head dim 16, state 8 and float64: shapes and types the kernels refuse
+    x, dy = (torch.randn(1, 2, 12, 16, generator=g, dtype=torch.float64)
+             for _ in range(2))
+    dt = torch.rand(1, 2, 12, generator=g, dtype=torch.float64)
+    a = -torch.rand(2, generator=g, dtype=torch.float64)
+    b_in, c_in = (torch.randn(1, 12, 8, generator=g, dtype=torch.float64)
+                  for _ in range(2))
+    got = ssd_fwd(x, dt, a, b_in, c_in, chunk=4, return_carries=True)
+    for p, q in zip(got, ssd_fwd_plain(x, dt, a, b_in, c_in, chunk=4,
+                                       return_carries=True)):
+        assert torch.equal(p, q)
+    ds = torch.randn(1, 2, 8, 16, generator=g)
+    for p, q in zip(ssd_bwd(x, dt, a, b_in, c_in, got[2], dy, ds, chunk=4),
+                    ssd_bwd_plain(x, dt, a, b_in, c_in, got[2], dy, ds,
+                                  chunk=4)):
+        assert torch.equal(p, q)
+    xg = x.clone().requires_grad_()
+    y, state = ssd(xg, dt, a, b_in, c_in, chunk=5)  # ragged: padded to 15
+    (y.sum() + state.sum()).backward()
+    assert xg.grad is not None and xg.grad.shape == x.shape
+    assert (ssd_fwd.launches, ssd_bwd.launches) == before
 
 
 def test_other_devices_are_refused():
