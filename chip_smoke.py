@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from this
-checkout and holds each against its plain PyTorch version at every shape
-its path gives it, then drives the port's paths at full width with random
+checkout, reads the registers, spills and tensor-core (HMMA) instructions
+of the flash-attention kernels from ``-Xptxas -v`` and their SASS, holds
+each kernel against its plain PyTorch version at every shape its path
+gives it, then drives the port's paths at full width with random
 weights from a seed:
 
 * serving: GPT-2 117M through ``repro_torch.launch.serve.serve_engine``,
@@ -26,7 +28,10 @@ weights from a seed:
   of ``predict_trajectory``, the launch counts of the forward and the three
   backward flash-attention kernels, every gradient leaf of two batches and
   the first 8 steps against the same run with plain attention on the same
-  card;
+  card; the flash-attention forward and backward also in bf16 at the
+  training shape (against SDPA's bf16 calls), two backward runs bit for
+  bit, and one loss and backward of gpt2-117m with bf16 params through
+  the kernels' bf16 instances against the blockwise backend;
 * RWKV-6: the WKV-6 forward and backward kernels against their plain
   versions (and the backward against autograd through the plain forward)
   at every shape the RWKV paths give them, then full-depth, full-width
@@ -63,6 +68,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -78,6 +84,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # input type (fp32 on the CUDA cores, bf16 on the tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
 H, D = 12, 64  # gpt2-117m heads and head dim
 ZAMBA_H, ZAMBA_D = 32, 80  # zamba2-2.7b's shared attention block
 PROMPT_LEN, GEN = 512, 64  # the served requests' longest prompt and budget
@@ -222,6 +229,14 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tc_bound(nbytes: float, flops: float) -> tuple:
+    """:func:`bound` of fp32 work that runs on the tensor cores as three
+    TF32 products (error-compensated TF32, the flash-attention kernels)."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bf16_tolerance(o: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """Per element: 2 bf16 ulps (8 significant bits) at the larger of |o|
     and |ref|, plus the fp32 tolerance, since both sides compute in fp32
@@ -245,7 +260,7 @@ def phase_device() -> dict:
     return dev
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -260,9 +275,68 @@ def phase_build() -> None:
                 kernels[name][entry]["info"] = (
                     kernels[name][entry].get("info", "") + line.strip(" :")
                     .replace("ptxas info    : ", "") + "; ")
-    emit("build", seconds=round(time.perf_counter() - t0, 2),
-         ptxas={n: {e: v.get("info", "") for e, v in ks.items()}
-                for n, ks in kernels.items()})
+    ptxas = {n: {e: v.get("info", "") for e, v in ks.items()}
+             for n, ks in kernels.items()}
+    emit("build", seconds=round(time.perf_counter() - t0, 2), ptxas=ptxas)
+    return {"libs": libs, "ptxas": ptxas}
+
+
+# the kernels redesigned for the tensor cores, by the name in their source;
+# HMMA is the SASS opcode of mma.sync (HMMA.1688.F32.TF32, .16816.F32.BF16)
+HMMA = re.compile(r"HMMA[.\w]*")
+FA_TENSOR_CORE_KERNELS = {"flash_attention_fwd": ("flash_fwd_kernel",),
+                          "flash_attention_bwd": ("bwd_dq_kernel",
+                                                  "bwd_dkv_kernel")}
+
+
+def _sass_functions(lib: Path) -> dict:
+    """{mangled function name: [SASS lines]} of a built library, from
+    ``cuobjdump -sass``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return funcs
+
+
+def _instance(mangled: str, kernel: str) -> str:
+    """``kernel<f32|bf16, D>`` from a mangled template instance name."""
+    d = "128" if "Li128E" in mangled else "64"
+    return f"{kernel}<{'bf16' if 'bfloat16' in mangled else 'f32'},{d}>"
+
+
+def phase_fa_design(build: dict) -> dict:
+    """Each instance of the flash-attention kernels redesigned for the
+    tensor cores: the registers and spills ``-Xptxas -v`` reported and the
+    tensor-core (HMMA) instructions in its SASS.  Fails if one has none,
+    or if its SASS cannot be read."""
+    found = {}
+    for lib_name, kernels in FA_TENSOR_CORE_KERNELS.items():
+        funcs = _sass_functions(build["libs"][lib_name].path)
+        info = build["ptxas"].get(lib_name, {})
+        for mangled, lines in funcs.items():
+            kernel = next((k for k in kernels if k in mangled), None)
+            if kernel is None:
+                continue
+            hmma = [m.group(0) for m in map(HMMA.search, lines) if m]
+            found[_instance(mangled, kernel)] = {
+                "hmma": len(hmma), "hmma_kinds": sorted(set(hmma)),
+                "ptxas": info.get(mangled, "not captured (library prebuilt)")}
+    want = {f"{k}<{t},{d}>" for ks in FA_TENSOR_CORE_KERNELS.values()
+            for k in ks for t in ("f32", "bf16") for d in (64, 128)}
+    check(set(found) == want, f"kernel instances {sorted(found)} != "
+                              f"{sorted(want)}")
+    for name, v in found.items():
+        check(v["hmma"] > 0, f"{name}: no tensor-core instruction in SASS")
+    emit("fa_design", kernels=found)
+    return found
 
 
 def _attn_inputs(b, s, dtype, seed):
@@ -312,7 +386,9 @@ def phase_flash_attention() -> tuple:
             q4, k4, v4 = (t.reshape(b, H, s, D) for t in (q, k, v))
             elt = q.element_size()
             nbytes = 4 * b * H * s * D * elt + b * H * s * 4
-            t_bound, by = bound(nbytes, 2 * b * H * s * s * D, dtype)
+            flops = 2 * b * H * s * s * D
+            t_bound, by = (tc_bound(nbytes, flops) if dtype == torch.float32
+                           else bound(nbytes, flops, dtype))
             timing[key] = {
                 "max_abs_err": check_attention(q, k, v, key)[0],
                 **times(lambda: flash_attention_fwd(q, k, v),
@@ -320,6 +396,9 @@ def phase_flash_attention() -> tuple:
                         lambda: F.scaled_dot_product_attention(
                             q4, k4, v4, is_causal=True)),
                 "bound_ms": t_bound, "bound_by": by}
+            if dtype == torch.float32:  # the same work on the CUDA cores
+                timing[key]["cuda_core_bound_ms"] = bound(nbytes, flops,
+                                                          dtype)[0]
     emit("flash_attention_fwd", max_err=errs, timing=timing)
     return timing, set(FA_SHAPES)
 
@@ -832,28 +911,37 @@ def phase_router(engine: dict) -> dict:
     return totals
 
 
-def check_attention_bwd(q, k, v, o, lse, do, what: str) -> list:
-    """[dq, dk, dv max abs err] of the three backward kernels against their
-    plain versions on the same inputs.  fp32: each within 1e-4 x max |plain|
-    (another summation order over up to 1024 keys) plus 1e-5 absolute for
-    entries that cancel to 0 (at S = 1, dq is 0 in exact arithmetic).  bf16
-    outputs: that plus 2 bf16 ulps at the value, since both sides compute
-    in fp32 and round once to bf16."""
+def attention_bwd_errs(q, k, v, o, lse, do, got=None) -> dict:
+    """{dq, dk, dv: (max abs err, within the limit)} of ``got`` (by default
+    the three backward kernels' outputs) against the plain versions on the
+    same inputs.  fp32: each within 1e-4 x max |plain| (another summation
+    order over up to 1024 keys) plus 1e-5 absolute for entries that cancel
+    to 0 (at S = 1, dq is 0 in exact arithmetic).  bf16 outputs: that plus
+    2 bf16 ulps at the value, since both sides compute in fp32 and round
+    once to bf16."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain)
-    got = flash_attention_bwd(q, k, v, o, lse, do)
+    if got is None:
+        got = flash_attention_bwd(q, k, v, o, lse, do)
     ref = flash_attention_bwd_plain(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    errs = []
+    errs = {}
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         err = (a.float() - r.float()).abs()
         tol = 1e-4 * r.float().abs().max().item() + 1e-5
         if q.dtype == torch.bfloat16:
             tol = tol + bf16_tolerance(a, r) - 2e-5
-        check(bool((err <= tol).all()), f"fa bwd {name} {what}: "
-                                        f"{err.max().item()}")
-        errs.append(err.max().item())
+        errs[name] = (err.max().item(), bool((err <= tol).all()))
     return errs
+
+
+def check_attention_bwd(q, k, v, o, lse, do, what: str) -> list:
+    """[dq, dk, dv max abs err] of :func:`attention_bwd_errs`; fails if one
+    is outside its limit."""
+    errs = attention_bwd_errs(q, k, v, o, lse, do)
+    for name, (err, ok) in errs.items():
+        check(ok, f"fa bwd {name} {what}: {err}")
+    return [err for err, _ in errs.values()]
 
 
 def train_config(attn_backend: str = "flash"):
@@ -878,26 +966,30 @@ def _causal_pairs(bh: int, s: int) -> int:
     return bh * s * (s + 1) // 2
 
 
-def _bwd_bounds(bh: int, s: int) -> dict:
+def _bwd_bounds(bh: int, s: int, tensor_cores: bool = True) -> dict:
     """(least ms, what bounds it) of each backward kernel and of all three,
     fp32, causal over the whole length: each input read once and each
     output written once; 2 D operations per (query, key) pair below the
     diagonal for each product a kernel does (dQ kernel: S, dP, dQ; dK/dV
-    kernel: S, dP, dV, dK; five distinct)."""
+    kernel: S, dP, dV, dK; five distinct), as three TF32 products on the
+    tensor cores (:func:`tc_bound`) or on the CUDA cores.  The delta
+    kernel runs on the CUDA cores."""
     row, tile = bh * s * 4, bh * s * D * 4
     pair_ops = 2 * D * _causal_pairs(bh, s)
     f32 = torch.float32
+    bound_fn = (tc_bound if tensor_cores
+                else lambda nbytes, flops: bound(nbytes, flops, f32))
     return {"preprocess": bound(2 * tile + row, 2 * bh * s * D, f32),
-            "dq": bound(5 * tile + 2 * row, 3 * pair_ops, f32),
-            "dkv": bound(6 * tile + 2 * row, 4 * pair_ops, f32),
-            "all": bound(8 * tile + row, 5 * pair_ops + 2 * bh * s * D, f32)}
+            "dq": bound_fn(5 * tile + 2 * row, 3 * pair_ops),
+            "dkv": bound_fn(6 * tile + 2 * row, 4 * pair_ops),
+            "all": bound_fn(8 * tile + row, 5 * pair_ops + 2 * bh * s * D)}
 
 
 def phase_flash_attention_bwd(shapes) -> tuple:
     """Holds the forward and the three backward kernels against their plain
     versions at every (B, S) of ``shapes`` (the training run's, at H = 12)
-    in fp32, plus ragged S = 1 and 427 in fp32 and bf16; times them at
-    (16, 1024) fp32."""
+    in fp32, plus ragged S = 1 and 427 in fp32 and bf16 and the bf16 model
+    run's (BF16_B, BF16_S); times them at (16, 1024) fp32."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
@@ -906,7 +998,8 @@ def phase_flash_attention_bwd(shapes) -> tuple:
         flash_attention_bwd_preprocess_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
     cases = [(torch.float32, b, s) for b, s in sorted(shapes)] + [
-        (dt, 4, s) for dt in (torch.float32, torch.bfloat16) for s in (1, 427)]
+        (dt, 4, s) for dt in (torch.float32, torch.bfloat16) for s in (1, 427)
+    ] + [(torch.bfloat16, BF16_B, BF16_S)]
     errs = {}
     for i, (dtype, b, s) in enumerate(cases):
         key = f"{str(dtype)[6:]}_{b}x{s}"
@@ -964,11 +1057,54 @@ def phase_flash_attention_bwd(shapes) -> tuple:
                             library_covers="all three backward kernels")
     for name, (t_bound, by) in bounds.items():
         timing[name].update(bound_ms=t_bound, bound_by=by)
+    for name, (t_bound, _) in _bwd_bounds(bh, s, False).items():
+        if name != "preprocess":  # the same work on the CUDA cores
+            timing[name]["cuda_core_bound_ms"] = t_bound
     fwd_bytes = 4 * bh * s * D * 4 + bh * s * 4
-    timing["fwd"].update(zip(("bound_ms", "bound_by"), bound(
-        fwd_bytes, 4 * D * _causal_pairs(bh, s), torch.float32)))
+    fwd_flops = 4 * D * _causal_pairs(bh, s)
+    timing["fwd"].update(zip(("bound_ms", "bound_by"),
+                             tc_bound(fwd_bytes, fwd_flops)))
+    timing["fwd"]["cuda_core_bound_ms"] = bound(fwd_bytes, fwd_flops,
+                                                torch.float32)[0]
+
+    # bf16 at the training shape: the forward and the whole backward against
+    # their plain versions (the existing tolerances) and SDPA's bf16 calls
+    bf = torch.bfloat16
+    qb, kb, vb, dob = (t.to(bf) for t in (q, k, v, do))
+    ob, lseb = flash_attention_fwd(qb, kb, vb)
+    q4b, k4b, v4b = (t.reshape(B_TRAIN, H, s, D).clone().requires_grad_()
+                     for t in (qb, kb, vb))
+    out4b = F.scaled_dot_product_attention(q4b, k4b, v4b, is_causal=True)
+    do4b = dob.reshape(B_TRAIN, H, s, D)
+    timing["fwd_bf16"] = {
+        "max_abs_err": check_attention(qb, kb, vb, "timed fwd bf16")[0],
+        **times(lambda: flash_attention_fwd(qb, kb, vb),
+                lambda: flash_attention_fwd_plain(qb, kb, vb),
+                lambda: F.scaled_dot_product_attention(
+                    q4b, k4b, v4b, is_causal=True))}
+    timing["fwd_bf16"].update(zip(("bound_ms", "bound_by"), bound(
+        fwd_bytes // 2 + bh * s * 2, 4 * D * _causal_pairs(bh, s), bf)))
+    timing["all_bf16"] = {
+        "max_abs_err": max(check_attention_bwd(qb, kb, vb, ob, lseb, dob,
+                                               "timed bf16")),
+        **times(lambda: flash_attention_bwd(qb, kb, vb, ob, lseb, dob),
+                lambda: flash_attention_bwd_plain(qb, kb, vb, ob, lseb, dob),
+                lambda: torch.autograd.grad(out4b, (q4b, k4b, v4b), do4b,
+                                            retain_graph=True))}
+    timing["all_bf16"].update(zip(("bound_ms", "bound_by"), bound(
+        8 * bh * s * D * 2 + bh * s * 4, 5 * 2 * D * _causal_pairs(bh, s),
+        bf)))
+
+    # no atomics: two runs of the backward on the same inputs agree bit
+    # for bit, in both dtypes
+    for args in ((q, k, v, o, lse, do), (qb, kb, vb, ob, lseb, dob)):
+        first = flash_attention_bwd(*args)
+        again = flash_attention_bwd(*args)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"fa bwd not deterministic ({args[0].dtype})")
     emit("flash_attention_bwd", max_err=errs, timing=timing,
-         shape=f"B={B_TRAIN} H={H} S={s} D={D} float32")
+         shape=f"B={B_TRAIN} H={H} S={s} D={D} float32 (and *_bf16)",
+         deterministic=True)
     return timing, {(b, s) for dt, b, s in cases if dt == torch.float32}
 
 
@@ -1036,6 +1172,18 @@ def phase_train(dev: dict, checked: set) -> dict:
     busy, names = device_profile(steps3)
     top = {k[:60]: v for k, v in sorted(names.items(),
                                         key=lambda kv: -kv[1])[:8]}
+    # each flash-attention kernel's device ms over the 3 traced steps, by
+    # the __global__ name in its source's anonymous namespace (demangled or
+    # mangled)
+    fa_ms = {name: sum(v for k, v in names.items() if re.search(
+                 rf"\(anonymous namespace\)::{fn}<|_GLOBAL__N_\w*\d{fn}I", k))
+             for name, fn in (("flash_attention_fwd", "flash_fwd_kernel"),
+                              ("flash_attention_bwd_preprocess",
+                               "bwd_preprocess_kernel"),
+                              ("flash_attention_bwd_dq", "bwd_dq_kernel"),
+                              ("flash_attention_bwd_dkv", "bwd_dkv_kernel"))}
+    check(all(v > 0 for v in fa_ms.values()),
+          f"a flash-attention kernel is missing from the trace: {fa_ms}")
     emit("train", card=dev["nvidia_smi"], steps=res.steps,
          tokens=res.tokens, full_length_steps=len(full),
          tokens_per_s_full_length=full_tokens / sum(full_s),
@@ -1047,7 +1195,8 @@ def phase_train(dev: dict, checked: set) -> dict:
          traced_3_full_steps={"wall_ms_untraced": wall,
                               "device_busy_ms": busy,
                               "device_idle_share": 1 - busy / wall,
-                              "top_kernels_ms": top})
+                              "top_kernels_ms": top,
+                              "flash_kernels_ms": fa_ms})
     return {"init": init, "result": res, "launches": launches}
 
 
@@ -1130,6 +1279,147 @@ def phase_train_parity(train: dict) -> None:
         check(rel[key] <= PARITY_RTOL, f"parity {key}: {rel[key]}")
     emit("train_parity", steps=n, max_rel_err=rel, rtol=PARITY_RTOL,
          seqlens=plain.seqlen_history, batches=plain.batch_history)
+
+# gpt2-117m in bf16: one loss and backward through the flash kernels'
+# bf16 instances, against the blockwise backend on the same bf16 params
+BF16_B, BF16_S = 8, 512
+# fixed before the first run: both backends round every GEMM, norm and
+# activation to bf16 (8 significant bits), and blockwise also rounds the
+# scores and P, which the kernels keep in fp32.  The same plain functions
+# on the host at this shape put the two 3.6e-2 of a leaf's largest entry
+# apart (wq, wk), each as far from the fp32 model (3.9e-2, 5.4e-2), and
+# the losses 4.3e-6 apart; a zeroed or mis-scaled gradient is off by the
+# whole leaf
+BF16_GRAD_RTOL = 0.1
+BF16_LOSS_RTOL = 1e-3
+# The model's gradients cannot say more: the same flash model on the
+# kernels' plain versions (fp32 P on both sides) reads about as far from
+# the kernels' run as blockwise does (PERF.md section 6, PR 16), since in
+# bf16 a flipped rounding anywhere moves every later leaf.  So every launch
+# of the run is held against its plain version on the inputs the run gave
+# it, at the kernel checks' bf16 tolerance, and a dv x (1 + BF16_FAULT)
+# planted there must break that tolerance in every layer.
+BF16_FAULT = 0.01
+
+
+def _bf16_grads(cfg, params, batch, backend, **swap):
+    """(loss, gradient leaves) of ``DenseLM.loss`` with ``backend``; each
+    ``swap`` replaces that name in the flash Function's module."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.transforms import tree_leaves, tree_unflatten
+    model = model_zoo.build_model(cfg.replace(attn_backend=backend),
+                                  remat="none")
+    leaves = [t.detach().clone().requires_grad_()
+              for t in tree_leaves(params)]
+    with (mock.patch.multiple(ops, **swap) if swap
+          else contextlib.nullcontext()):
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def _max_rel(names, got, ref) -> dict:
+    """{leaf: max |got - ref| / max |ref|}."""
+    return {n: (a.float() - r.float()).abs().max().item()
+            / r.float().abs().max().item() for n, a, r in zip(names, got, ref)}
+
+
+def phase_grads_bf16() -> dict:
+    """``DenseLM.loss`` and its backward of full-width gpt2-117m with bf16
+    params (random, from SEED) on a random 8 x 512 batch, through the flash
+    backend, each kernel launched once a layer: the loss and every leaf
+    against the blockwise backend within the fixed limits, and each launch
+    against its plain version on the inputs the run gave it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.transforms import tree_map
+    cfg = get_arch("gpt2-117m")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tree_map(lambda t: t.to(torch.bfloat16), model_zoo.init_params(
+        cfg, gen, torch.device("cuda")))
+    tokens = torch.randint(0, cfg.vocab_size, (BF16_B, BF16_S + 1),
+                           device="cuda", generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    names = _leaf_names(params)
+    run = functools.partial(_bf16_grads, cfg, params, batch)
+
+    calls = {"fwd": [], "bwd": []}
+
+    def fwd(*args, **kw):
+        calls["fwd"].append((args, kw))
+        return flash_attention_fwd(*args, **kw)
+
+    def bwd(*args, **kw):
+        calls["bwd"].append((args, kw))
+        return flash_attention_bwd(*args, **kw)
+    kernels = _fa_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    flash_loss, got = run("flash", flash_attention_fwd=fwd,
+                          flash_attention_bwd=bwd)
+    launches = {name: f.launches for name, f in kernels.items()}
+    plain_loss, ref = run("blockwise")
+    fp32p_loss, fp32p = run("flash",
+                            flash_attention_fwd=flash_attention_fwd_plain,
+                            flash_attention_bwd=flash_attention_bwd_plain)
+    check({name: f.launches for name, f in kernels.items()} == launches,
+          "the blockwise or plain run launched a flash-attention kernel")
+    want = {name: cfg.n_layers for name in kernels}
+    check(launches == want, f"bf16 launches {launches} != {want}")
+
+    for name, a, r in zip(names, got, ref):
+        check(a.dtype == torch.bfloat16, f"{name} gradient is {a.dtype}")
+        if ".attn." in name:
+            check(r.abs().max().item() > 0, f"no gradient reaches {name}")
+    loss_rel = abs(flash_loss - plain_loss) / abs(plain_loss)
+    check(loss_rel <= BF16_LOSS_RTOL, f"bf16 loss: {loss_rel}")
+    rel = _max_rel(names, got, ref)
+    for name, e in rel.items():
+        check(e <= BF16_GRAD_RTOL, f"bf16 gradient {name}: {e}")
+
+    # every launch against its plain version on the run's own inputs
+    whole = {"causal": True, "valid_len": BF16_S}
+    fwd_err, bwd_err, caught, do_max = 0.0, 0.0, 0, 0.0
+    for i, (args, kw) in enumerate(calls["fwd"]):
+        check(kw == whole, f"bf16 forward call {i}: {kw}")
+        fwd_err = max(fwd_err, check_attention(*args, f"bf16 model {i}")[0])
+    for i, ((q, k, v, o, lse, do), kw) in enumerate(calls["bwd"]):
+        check(kw == whole, f"bf16 backward call {i}: {kw}")
+        # the loss's dO is small (do_max), where the limits' absolute
+        # floors, set for unit-size inputs, could hide a wrong dv: the
+        # backward is linear in dO and a power-of-two scale is exact, so
+        # the kernels see the run's inputs scaled to a largest |dO| in
+        # [1, 2), as in the other checks
+        do_max = max(do_max, do.abs().max().item())
+        do = do * 2.0 ** -math.floor(math.log2(do.abs().max().item()))
+        args = (q, k, v, o, lse, do)
+        bwd_err = max(bwd_err, *check_attention_bwd(*args,
+                                                    f"bf16 model {i}"))
+        dq, dk, dv = flash_attention_bwd(*args)
+        errs = attention_bwd_errs(*args, got=(dq, dk, dv * (1 + BF16_FAULT)))
+        caught += not errs["dv"][1]
+    n = len(calls["bwd"])
+    check(caught == n, f"a planted dv x {1 + BF16_FAULT} passed the kernel "
+                       f"check in {n - caught} of {n} backward calls")
+    fp32p_rel = _max_rel(names, got, fp32p)
+    emit("grads_bf16", shape=f"{BF16_B}x{BF16_S}", loss=flash_loss,
+         loss_rel_err=loss_rel, leaves=len(rel), rtol=BF16_GRAD_RTOL,
+         max_rel_err=max(rel.values()), worst_leaf=max(rel, key=rel.get),
+         launches=launches, calls_checked={"fwd": len(calls["fwd"]),
+                                           "bwd": n},
+         calls_max_abs_err={"fwd": fwd_err, "bwd": bwd_err}, do_max=do_max,
+         planted_dv_fault_caught=f"{caught} of {n}",
+         reported_only_plain_versions={
+             "loss_rel_err": abs(flash_loss - fp32p_loss) / abs(fp32p_loss),
+             "max_rel_err": max(fp32p_rel.values()),
+             "worst_leaf": max(fp32p_rel, key=fp32p_rel.get)})
+    return launches
 
 # ---------------------------------------------------------------------------
 # RWKV-6: the WKV-6 kernels, serving and training rwkv6-7b at full width
@@ -2429,7 +2719,7 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
 
 def main() -> int:
     dev = phase_device()
-    phase_build()
+    phase_fa_design(phase_build())
     fa_timing, fa_checked = phase_flash_attention()
     from repro_torch.launch.serve import make_requests
     from repro_torch.configs import get_arch
@@ -2457,6 +2747,8 @@ def main() -> int:
     phase_train_parity(train)
     train_launches = train["launches"]
     del train
+    torch.cuda.empty_cache()
+    bf16_launches = phase_grads_bf16()
     torch.cuda.empty_cache()
 
     from repro_torch.launch.serve import scheduler_config
@@ -2493,6 +2785,7 @@ def main() -> int:
     ref = "src/repro/kernels/"
     by_path = {"serve": serve_launches, "serve_paged": paged_launches,
                "router": router_launches, "train": train_launches,
+               "grads_bf16": bf16_launches,
                **rwkv_serve, "train_rwkv": rwkv_train, **zamba_serve,
                "train_zamba": zamba_train}
     rows = [("flash_attention_fwd", "flash_attention_fwd.cu",

@@ -75,6 +75,9 @@ def _check(q, k, v, valid_len):
         raise ValueError("q, k, v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start 16-byte aligned (the kernels "
+                         "copy tiles 16 bytes at a time)")
     if q.shape[0] > 65535 or q.shape[1] < 1:
         raise ValueError(f"BH must be <= 65535 and S >= 1, got {tuple(q.shape)}")
     if not 0 <= valid_len <= q.shape[1]:
