@@ -231,7 +231,8 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 def tc_bound(nbytes: float, flops: float) -> tuple:
     """:func:`bound` of fp32 work that runs on the tensor cores as three
-    TF32 products (error-compensated TF32, the flash-attention kernels)."""
+    TF32 products (error-compensated TF32: the flash-attention and SSD
+    kernels)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = 3 * flops / TF32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -287,6 +288,11 @@ HMMA = re.compile(r"HMMA[.\w]*")
 FA_TENSOR_CORE_KERNELS = {"flash_attention_fwd": ("flash_fwd_kernel",),
                           "flash_attention_bwd": ("bwd_dq_kernel",
                                                   "bwd_dkv_kernel")}
+# the SSD kernels' tensor-core passes (the state passing between them is
+# elementwise on the CUDA cores): chunk-local states, then the outputs
+SSD_TENSOR_CORE_KERNELS = {"ssd": ("ssd_chunk_state_kernel",
+                                   "ssd_fwd_out_kernel",
+                                   "ssd_bwd_out_kernel")}
 
 
 def _sass_functions(lib: Path) -> dict:
@@ -307,18 +313,23 @@ def _sass_functions(lib: Path) -> dict:
 
 
 def _instance(mangled: str, kernel: str) -> str:
-    """``kernel<f32|bf16, D>`` from a mangled template instance name."""
+    """``kernel<f32|bf16, D>`` from a mangled template instance name; the
+    SSD kernels ``kernel<f32|bf16>``, the chunk-state pass with its
+    direction."""
+    t = "bf16" if "bfloat16" in mangled else "f32"
+    if kernel.startswith("ssd_"):
+        if kernel == "ssd_chunk_state_kernel":
+            return f"{kernel}<{t},{'fwd' if 'Lb1E' in mangled else 'bwd'}>"
+        return f"{kernel}<{t}>"
     d = "128" if "Li128E" in mangled else "64"
-    return f"{kernel}<{'bf16' if 'bfloat16' in mangled else 'f32'},{d}>"
+    return f"{kernel}<{t},{d}>"
 
 
-def phase_fa_design(build: dict) -> dict:
-    """Each instance of the flash-attention kernels redesigned for the
-    tensor cores: the registers and spills ``-Xptxas -v`` reported and the
-    tensor-core (HMMA) instructions in its SASS.  Fails if one has none,
-    or if its SASS cannot be read."""
+def _tensor_core_instances(build: dict, table: dict) -> dict:
+    """{instance: HMMA count, kinds, ptxas line} of every instance of the
+    kernels ``table`` names, from the built libraries' SASS."""
     found = {}
-    for lib_name, kernels in FA_TENSOR_CORE_KERNELS.items():
+    for lib_name, kernels in table.items():
         funcs = _sass_functions(build["libs"][lib_name].path)
         info = build["ptxas"].get(lib_name, {})
         for mangled, lines in funcs.items():
@@ -329,13 +340,29 @@ def phase_fa_design(build: dict) -> dict:
             found[_instance(mangled, kernel)] = {
                 "hmma": len(hmma), "hmma_kinds": sorted(set(hmma)),
                 "ptxas": info.get(mangled, "not captured (library prebuilt)")}
+    return found
+
+
+def phase_fa_design(build: dict) -> dict:
+    """Each instance of the kernels redesigned for the tensor cores (flash
+    attention, and the SSD passes): the registers and spills ``-Xptxas -v``
+    reported and the tensor-core (HMMA) instructions in its SASS.  Fails if
+    one has none, or if its SASS cannot be read."""
+    found = _tensor_core_instances(build, FA_TENSOR_CORE_KERNELS)
     want = {f"{k}<{t},{d}>" for ks in FA_TENSOR_CORE_KERNELS.values()
             for k in ks for t in ("f32", "bf16") for d in (64, 128)}
     check(set(found) == want, f"kernel instances {sorted(found)} != "
                               f"{sorted(want)}")
-    for name, v in found.items():
+    ssd = _tensor_core_instances(build, SSD_TENSOR_CORE_KERNELS)
+    want = {f"ssd_chunk_state_kernel<{t},{d}>" for t in ("f32", "bf16")
+            for d in ("fwd", "bwd")} | {
+        f"{k}<{t}>" for k in ("ssd_fwd_out_kernel", "ssd_bwd_out_kernel")
+        for t in ("f32", "bf16")}
+    check(set(ssd) == want, f"ssd kernel instances {sorted(ssd)} != "
+                            f"{sorted(want)}")
+    for name, v in {**found, **ssd}.items():
         check(v["hmma"] > 0, f"{name}: no tensor-core instruction in SASS")
-    emit("fa_design", kernels=found)
+    emit("fa_design", kernels=found, ssd_kernels=ssd)
     return found
 
 
@@ -2273,7 +2300,7 @@ def phase_ssd_fwd(prefills, train_shapes) -> tuple:
         b, s, q = _ssd_kernel_shape(b, s)
         x, dt, a, b_in, c_in = _ssd_inputs(b, s, torch.float32, 60)
         nbytes, ops = ssd_fwd_work(b, s, q, 4)
-        t_bound, by = bound(nbytes, ops, torch.float32)
+        t_bound, by = tc_bound(nbytes, ops)
         timing[key] = {
             "max_abs_err": (ssd_fwd(x, dt, a, b_in, c_in, chunk=q)[0]
                             - ssd_fwd_plain(x, dt, a, b_in, c_in,
@@ -2283,7 +2310,8 @@ def phase_ssd_fwd(prefills, train_shapes) -> tuple:
                     plain_queued=False),
             "library_note": "no one PyTorch call computes the SSD scan",
             "bytes": nbytes, "operations": ops, "bound_ms": t_bound,
-            "bound_by": by}
+            "bound_by": by,
+            "cuda_core_bound_ms": bound(nbytes, ops, torch.float32)[0]}
         del x, dt, a, b_in, c_in
     torch.cuda.empty_cache()
     emit("ssd_fwd", rel_err=errs, timing=timing,
@@ -2354,8 +2382,13 @@ def phase_ssd_bwd(train_shapes) -> tuple:
     dstate = torch.randn(b, SSD_H, SSD_N, SSD_P, device="cuda", generator=gen)
     _, _, carries = ssd_fwd_plain(*xs, chunk=q, return_carries=True)
     args = (*xs, carries, dy, dstate)
+    # no atomics: two backward calls give the same bits
+    first, second = ssd_bwd(*args, chunk=q), ssd_bwd(*args, chunk=q)
+    identical = all(torch.equal(u, v) for u, v in zip(first, second))
+    check(identical, "two ssd_bwd runs at 8 x 1024 differ")
+    del first, second
     nbytes, ops = ssd_bwd_work(b, s, q)
-    t_bound, by = bound(nbytes, ops, torch.float32)
+    t_bound, by = tc_bound(nbytes, ops)
     timing = {"train_8x1024": {
         "max_abs_err": max(
             (g - e).abs().max().item() for g, e in zip(
@@ -2364,10 +2397,12 @@ def phase_ssd_bwd(train_shapes) -> tuple:
                 lambda: ssd_bwd_plain(*args, chunk=q), plain_queued=False),
         "library_note": "no one PyTorch call computes the SSD backward",
         "bytes": nbytes, "operations": ops, "bound_ms": t_bound,
-        "bound_by": by}}
+        "bound_by": by,
+        "cuda_core_bound_ms": bound(nbytes, ops, torch.float32)[0]}}
     del args, xs, dy, dstate, carries
     torch.cuda.empty_cache()
-    emit("ssd_bwd", rel_err=errs, timing=timing)
+    emit("ssd_bwd", rel_err=errs, timing=timing,
+         bitwise_identical_reruns=identical)
     return timing, checked
 
 
@@ -2815,6 +2850,7 @@ def main() -> int:
                         "replaces": ref + rep,
                         "launches": sum(counts.values()),
                         "launches_by_path": counts, **t})
+    emit("done", seconds=time.perf_counter() - START)
     print(json.dumps({"kernels": entries}), flush=True)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

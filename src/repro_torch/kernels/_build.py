@@ -7,8 +7,9 @@ header, so it compiles in seconds:
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
 
 The libraries go to ``build/repro_torch_kernels/`` at the repo root (git
-ignores ``build/``), named by a hash of their source, so an edited source
-is rebuilt and an unchanged one is not.  All sources build at once, one
+ignores ``build/``), named by a hash of their source and of every
+``csrc/*.cuh`` header it includes, so an edited source or header is rebuilt
+and an unchanged one is not.  All sources build at once, one
 nvcc process each, started together; the first kernel call in a process
 triggers the build.  Nothing here runs at import.
 """
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,10 +52,28 @@ def _nvcc() -> str:
     return found
 
 
+INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _headers(src: Path) -> list:
+    """The ``csrc/*.cuh`` headers ``src`` includes, directly or through
+    another header, in a fixed order."""
+    seen, todo = [], [src]
+    while todo:
+        for name in INCLUDE.findall(todo.pop().read_bytes()):
+            header = CSRC / name.decode()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return sorted(seen)
+
+
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in _headers(src):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 @functools.cache

@@ -66,12 +66,10 @@
 // log2(e) / sqrt(D) in one FMA.  At D = 128 the dK/dV kernel walks q tiles
 // of 32 in bf16 too, so its four accumulators fit the registers.  The grids
 // run bh fastest and the heaviest tiles first.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
 #include <cmath>
 #include <type_traits>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -83,46 +81,9 @@ constexpr int THREADS = 128;      // 4 warps
 constexpr int PRE_THREADS = 256;  // delta kernel: a warp per row
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // ---------------------------------------------------------------------------
 // copies
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// global -> shared, zero-filled when !full (nothing is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows [row0, row0 + ROWS) of one (S, D) head into a tile of row stride ST
 // elements; rows at or past s are zero-filled.
@@ -150,28 +111,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 // ---------------------------------------------------------------------------
 // products: error-compensated TF32 on m16n8k8
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// An A-operand element as (hi, lo): fp32 split; bf16 exact in TF32, lo = 0.
-__device__ __forceinline__ void split_in(float x, uint32_t& hi, uint32_t& lo) {
-  split_tf32(x, hi, lo);
-}
-__device__ __forceinline__ void split_in(bf16 x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(__bfloat162float(x));
-  lo = 0u;
-}
 
 // Once a streamed fp32 tile (a B operand) has landed, each thread splits
 // the 16-byte chunks it copied (load_tile's mapping): TF32 hi in place, lo
@@ -207,43 +146,6 @@ __device__ __forceinline__ void b_elem(const bf16* x_s, const float*, int i,
                                        uint32_t& hi, uint32_t& lo) {
   hi = __float_as_uint(__bfloat162float(x_s[i]));
   lo = 0u;
-}
-
-// 2^x (ex2.approx, ~2^-22 relative; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[j] += A B_j for j < N: hi hi, plus lo hi where A has a low part and
-// hi lo where B has one, issued a pass over the j at a time (lo hi, hi lo,
-// hi hi): the same order into each accumulator, independent MMAs back to
-// back.
-template <int N, bool A_LO, bool B_LO>
-__device__ __forceinline__ void mma_passes(float (&c)[N][4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[N][2],
-                                           const uint32_t (&bl)[N][2]) {
-  if (A_LO) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) mma_tf32(c[j], al, bh[j][0], bh[j][1]);
-  }
-  if (B_LO) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) mma_tf32(c[j], ah, bl[j][0], bl[j][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], ah, bh[j][0], bh[j][1]);
 }
 
 // c[j] += A B_j^T for j < NT: A the 16 rows at a_s, B_j rows 8j .. 8j + 7
@@ -303,27 +205,6 @@ __device__ __forceinline__ void mma_frag(float (&c)[D / 8][4],
     mma_passes<D / 8, true, !EXACT>(c, ah, al, bh, bl);
   }
 }
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-}
-
-// acc += part in round-to-nearest fp32.  Each tile's product is taken in a
-// fresh accumulator and added here: the tensor cores truncate their sums,
-// and a truncation bias carried over every tile of the loop grows with S
-// (the cancellation in dS = P (dP - delta) then magnifies it).
-template <int NT>
-__device__ __forceinline__ void add_to(float (&acc)[NT][4],
-                                       const float (&part)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-}
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // Streamed tiles: fp32 keeps a lo half beside each (see split_tile), so the
 // dQ kernel walks kv tiles of 32 and the dK/dV kernel q tiles of 32, and two

@@ -51,12 +51,10 @@
 // tile and keys of a ragged last kv tile are masked (or zero-filled by the
 // copy) here, so the wrapper makes no padded copies.  The grid runs bh
 // fastest and the diagonal-most (heaviest) q tiles first.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
 #include <cmath>
 #include <type_traits>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -72,26 +70,6 @@ constexpr float LN2 = 0.6931471805599453f;
 // ---------------------------------------------------------------------------
 // copies
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !full (nothing is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows [row0, row0 + ROWS) of one (S, D) head into a tile of row stride ST
 // elements; rows at or past s are zero-filled.
@@ -111,44 +89,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
 // ---------------------------------------------------------------------------
 // fp32: error-compensated TF32 on m16n8k8
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[j] += A B_j for j < N, three TF32 products (lo hi, hi lo, hi hi)
-// issued a pass over the j at a time: the same order into each
-// accumulator, independent MMAs back to back.
-template <int N>
-__device__ __forceinline__ void mma_passes(float (&c)[N][4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[N][2],
-                                           const uint32_t (&bl)[N][2]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], al, bh[j][0], bh[j][1]);
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], ah, bl[j][0], bl[j][1]);
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], ah, bh[j][0], bh[j][1]);
-}
 
 // c[j] += A B_j^T for j < NT: A the 16 rows at a_s, B_j rows 8j .. 8j + 7
 // of b_s, both (rows, D) of stride ST; three TF32 products a step.
@@ -208,40 +148,6 @@ __device__ __forceinline__ void mma_frag_tf32(float (&c)[D / 8][4],
 // bf16: m16n8k16
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x0, x1) = hi + lo + O(2^-17): hi the nearest bf16 pair, lo the nearest
-// bf16 pair of the remainder; x0 in the low half (the lower column)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
 // Q's A fragments of the warp's 16 rows (q_w, stride ST), one per 16-step
 template <int D, int ST>
 __device__ __forceinline__ void load_q_bf16(uint32_t (&qf)[D / 16][4],
@@ -297,21 +203,6 @@ __device__ __forceinline__ void pv_bf16(float (&acc)[D / 8][4],
       mma_bf16(acc[2 * nn + 1], ph, b[nn][2], b[nn][3]);
     }
   }
-}
-
-// 2^x (ex2.approx, ~2^-22 relative; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // ---------------------------------------------------------------------------

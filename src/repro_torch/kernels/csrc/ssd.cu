@@ -2,484 +2,940 @@
 // C interface.
 //
 // Replaces the two TPU kernels of src/repro/kernels/ssd/kernel.py:
-//   * ssd_fwd_kernel <- `_ssd_kernel` (line 35, pallas_call at 116): per
-//     chunk of Q rows, y = (C B^T o decay) (x dt) + exp(cum) (C S), then the
-//     (N, P) state S <- exp(cum_Q) S + sum_j exp(cum_Q - cum_j) B_j^T (x dt)_j;
+//   * ssd_fwd <- `_ssd_kernel` (line 35, pallas_call at 116): per chunk of
+//     Q rows, y = (C B^T o decay) (x dt) + exp(cum) (C S), then the (N, P)
+//     state S <- exp(cum_Q) S + sum_j exp(cum_Q - cum_j) B_j^T (x dt)_j;
 //     optionally the state entering each chunk (the backward's residual);
-//   * ssd_bwd_kernel <- `_ssd_bwd_kernel` (line 138, pallas_call at 234):
-//     the reverse chunk scan carrying the (N, P) cotangent g of the
-//     chunk-final state, seeded from dstate; per chunk it recomputes the
-//     decay geometry from the saved inputs and the chunk's entry carry and
-//     emits dx, ddt, dlog and the per-head db_h, dc_h.
+//   * ssd_bwd <- `_ssd_bwd_kernel` (line 138, pallas_call at 234): the
+//     reverse chunk scan carrying the (N, P) cotangent G of the chunk-final
+//     state, seeded from dstate; per chunk dx, ddt, dlog and the per-head
+//     db_h, dc_h from the saved inputs, the chunk's entry carry and G.
 // x is (B, H, S, P) fp32 or bf16, B and C (B, S, N) in x's type and shared
 // by the heads, dt (B, H, S) fp32, a (H,) fp32; everything is fp32 inside.
 // N = P = 64, Q <= 128 and S % Q == 0.
 //
 // cum is the inclusive cumulative sum of dt * a over the chunk.  Every
 // exponent is taken of a difference, cum_i - cum_j (j <= i), cum_i or
-// cum_Q - cum_j, all <= 0: a factored exp(cum_i) * exp(-cum_j) overflows
-// once cum passes -88 and gives inf * 0 = NaN.
+// cum_Q - cum_j, all <= 0, and the state passing multiplies by
+// exp(cum_Q) <= 1: a factored exp(cum_i) * exp(-cum_j) overflows once cum
+// passes -88 and gives inf * 0 = NaN.
 //
-// What bounds it on the H100: operations.  Per chunk the forward does
-// Q (Q + 1) / 2 (N + P) + 2 Q N P multiply-adds against four (Q, 64) tiles
-// of input and output; the backward about three times that.  This first
-// version runs them on the fp32 CUDA cores out of shared memory.
+// What bounds it on the H100: operations, on the tensor cores.  At 8 x
+// 1024 (H = 80, Q = 128, 5,120 chunks) the forward's products come to ~23
+// GFLOP with the 16 x 16 tiles above the diagonal skipped, ~68 GFLOP as
+// three TF32 products, against ~0.85 GB of traffic (x read twice, y, and
+// the (N, P) states written, turned into the carries and read); the
+// backward's to ~64 GFLOP, ~191 as TF32, against ~1.35 GB.
 //
-// Design.  The TPU carried the state (and the cotangent) in VMEM scratch
-// across a sequential chunk grid axis.  CUDA has no sequential grid axis,
-// so one block owns one (b, h) and walks its chunks in order (backward: in
-// reverse) with the state or g in shared memory; no atomics, so results are
-// the same run to run.  Row tiles are stored with a stride of 65 floats so
-// that a warp reading one column of 32 rows hits 32 banks.  At B = 1 (a
-// serving prefill) only H = 80 blocks run on the 132 SMs; that is left as
-// it is.
+// Design: three launches a direction, each over independent work.
+//   1. Chunk-local states, grid (b, h, chunk):  L_c = B_c^T diag(exp(cum_Q -
+//      cum) dt) x_c (forward) or K_c = C_c^T diag(exp(cum)) dy_c (backward),
+//      (N, P) contractions over the chunk's Q rows, and exp(cum_Q).
+//   2. State passing, grid (b, h, slice of the N P cells), elementwise on
+//      the CUDA cores in fp32 round-to-nearest: S_0 = 0, S_{c+1} =
+//      exp(cum_Q,c) S_c + L_c in chunk order, or G_{nc-1} = dstate,
+//      G_{c-1} = exp(cum_Q,c) G_c + K_c in reverse, in place: slot c of the
+//      buffer holds L_c (K_c) on entry and S_c (G_c) on exit.
+//   3. Outputs, grid (b, h, chunk): the forward's y from the chunk's inputs
+//      and S_c; the backward's every output from the inputs, S_c and G_c.
+// The TPU kernel carried the state across a sequential chunk grid axis;
+// the GPU has none, and one block walking a (b, h)'s chunks in order left
+// 80 blocks for 132 SMs at a serving prefill.  Here passes 1 and 3 have
+// B H nc independent blocks and only pass 2, which moves B H nc N P fp32
+// cells and does one FMA each, is sequential over chunks.  No pass sums
+// across blocks: the reference already made dA a per-position dlog and dB,
+// dC per head.  No atomics, so two runs give the same bits.
 //
-// Shared memory at Q = 128.  Forward: x dt, B and C tiles (3 x 33 KB), the
-// (Q, Q + 1) score tile (66 KB) and the state (17 KB): 184 KB.  The
-// backward keeps one (Q, Q + 1) tile, not the two the TPU kernel held
-// (scores and w): it holds first the entry carry, then M = scores o decay
-// (for dx, and, through y_intra and dxdt_intra, the row and column sums of
-// t = M o (dy x_dt^T)), then w = decay o (dy x_dt^T) (for dB and dC).
-// With x dt, B, C, dy and g it comes to 218 KB of the 227 KB a block may
-// opt into.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Arithmetic.  Every product is mma.sync.m16n8k8 TF32 with fp32 operands
+// split into hi and lo (three products; bf16 operands are exact in TF32
+// and skip their lo product, so C B^T in bf16 is one product).  The split
+// rounds as cvt.rna does, by integer operations (split_tf32_alu): the
+// products here are bound by the instructions that feed them, and two
+// conversions an operand element cost more than the ALU sequence.  The
+// decay-masked tiles M = (C B^T) o decay and w = (dy x^T) o decay are
+// fp32 in registers, split, never rounded once.  dt is folded into them
+// (M_ij dt_j, w_ij dt_j) or into the chunk-state coefficients, so x enters
+// the products as it is.  The tensor cores truncate their sums, so no MMA
+// accumulator spans more than one chunk's rows (16 k-steps of 8): the sums
+// across chunks are pass 2's, in round-to-nearest, and each product with
+// the carried state is taken in its own accumulator and added in fp32.
+//
+// Tiles.  A block stages the chunk's (Q, 64) tiles in shared memory by
+// 16-byte cp.async (rows past Q zero-filled; Q need not be a multiple of
+// 16), rows padded by 16 bytes (68 floats, 72 bf16) so that the fragment
+// loads are free of bank conflicts.  A warp owns 16-row tiles of the chunk
+// in pairs (I, 7 - I), so every warp walks 9 16 x 16 tiles of the causal
+// triangle, none above the diagonal, with its own tile's A fragments split
+// once and held in registers.  Forward pass 3: 4 warps, C, B and x tiles
+// (106 KB fp32, two blocks an SM; the carried state is staged transposed
+// in x's place before x lands).  Backward pass 3: 8 warps, one block an SM
+// (214 KB fp32: C, B, x, dy, S_c, G_c and the dB state term); warps 0-3
+// walk row tiles (scores, w, dC) and the dB state term, warps 4-7 column
+// tiles (M^T dy, w^T C, dx) and hand off through a named barrier, so
+// neither half transposes a fragment through memory.
+#include <type_traits>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_Q = 128;
-constexpr int NRED = 10;  // per-row partial sums of the backward, 2 each
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+constexpr int MAX_Q = 128;  // rows of a chunk tile: 8 tiles of 16
+constexpr int DIM = 64;     // N = P
+constexpr int CELLS = DIM * DIM;
+constexpr int ST32 = DIM + 4;  // fp32 row stride of the state tiles
+// columns a warp's 16 rows take on at a step of the causal triangle: the
+// scores and w tiles are 16 x TW
+constexpr int TW = 16;
+constexpr int NS = TW / 8;
+
+// a tile's row stride in elements, rows padded by 16 bytes
+template <typename T>
+constexpr int ROW_STRIDE = DIM + 16 / (int)sizeof(T);
+// bf16 values are exact in TF32: no lo part, no lo product
+template <typename T>
+constexpr bool EXACT = std::is_same<T, bf16>::value;
+
+// ---------------------------------------------------------------------------
+// staging
+// ---------------------------------------------------------------------------
+
+// Rows [0, rows) of a (rows, 64) tile from src (row stride 64) into dst
+// (row stride ROW_STRIDE<T>); rows at or past `valid` are zero-filled.
+template <int THREADS, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int valid,
+                                          int rows) {
+  constexpr int CH = 16 / sizeof(T);
+  constexpr int PER_ROW = DIM / CH;
+  constexpr int ST = ROW_STRIDE<T>;
+  for (int i = threadIdx.x; i < rows * PER_ROW; i += THREADS) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * CH;
+    const bool in = r < valid;
+    cp_async16(dst + r * ST + c, src + (int64_t)(in ? r : 0) * DIM + c, in);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Inclusive scan of in[k] * scale over k < q by one warp (q <= MAX_Q):
-// out[k] = sum_{m <= k} in[m] * scale, or with `reverse` the suffix sums
-// out[k] = sum_{m >= k} in[m] * scale.  Each lane sums MAX_Q / 32
-// consecutive terms; a shuffle scan joins the lanes.
-__device__ __forceinline__ void warp_scan(const float* in, float scale,
-                                          float* out, int q, bool reverse) {
-  constexpr int R = MAX_Q / 32;
+// By one warp: cum_k = a sum_{m <= k} dt_m over the chunk's q steps into
+// CUM, dt into DT, for every k < MAX_Q; dt_k = 0 past q, so cum_k = cum_{q-1}
+// there and every exponent stays finite.  Lane L holds k = 4L .. 4L + 3;
+// returns cum of those in v.
+__device__ __forceinline__ void chunk_cum(const float* dt, float a, int q,
+                                          float* CUM, float* DT,
+                                          float (&v)[4]) {
   const int lane = threadIdx.x & 31;
-  float vals[R];
-  float run = 0.f;
+  float d[4], run = 0.f;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane * R + r;
-    const int idx = reverse ? q - 1 - k : k;
-    run += k < q ? in[idx] * scale : 0.f;
-    vals[r] = run;
+  for (int r = 0; r < 4; ++r) {
+    const int k = 4 * lane + r;
+    d[r] = k < q ? dt[k] : 0.f;
+    run += d[r] * a;
+    v[r] = run;
   }
   float tot = run;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, tot, off);
-    if (lane >= off) tot += t;
+    const float up = __shfl_up_sync(0xffffffffu, tot, off);
+    if (lane >= off) tot += up;
   }
   const float before = tot - run;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane * R + r;
-    if (k < q) out[reverse ? q - 1 - k : k] = vals[r] + before;
+  for (int r = 0; r < 4; ++r) {
+    v[r] += before;
+    CUM[4 * lane + r] = v[r];
+    DT[4 * lane + r] = d[r];
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// warp products (fragment g = lane / 4, t = lane % 4)
+// ---------------------------------------------------------------------------
+
+// One 8-step of k (columns k0 = 8 ks + t and k0 + 4 of this lane) of an
+// operand read along k: A's fragment of the 16 rows at a_s (stride SA),
+// and B's of rows 8j + g of b_s (stride SB) for j < NT.
+template <int SA, typename TA>
+__device__ __forceinline__ void frag_a(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                       const TA* a_s, int k0, int g) {
+  split_in_alu(a_s[g * SA + k0], ah[0], al[0]);
+  split_in_alu(a_s[(g + 8) * SA + k0], ah[1], al[1]);
+  split_in_alu(a_s[g * SA + k0 + 4], ah[2], al[2]);
+  split_in_alu(a_s[(g + 8) * SA + k0 + 4], ah[3], al[3]);
+}
+template <int NT, int SB, typename TB>
+__device__ __forceinline__ void frag_b(uint32_t (&bh)[NT][2],
+                                       uint32_t (&bl)[NT][2], const TB* b_s,
+                                       int k0, int g) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    split_in_alu(b_s[(8 * j + g) * SB + k0], bh[j][0], bl[j][0]);
+    split_in_alu(b_s[(8 * j + g) * SB + k0 + 4], bh[j][1], bl[j][1]);
   }
 }
 
-template <int N, int P>
-__host__ __device__ constexpr int fwd_smem_floats(int q) {
-  return q * (P + 1) + 2 * q * (N + 1) + q * (q + 1) + N * (P + 1)
-         + 3 * MAX_Q;
-}
-
-template <int N, int P>
-__host__ __device__ constexpr int bwd_tile_floats(int q) {
-  return q * (q + 1) > N * (P + 1) ? q * (q + 1) : N * (P + 1);
-}
-
-template <int N, int P>
-__host__ __device__ constexpr int bwd_smem_floats(int q) {
-  return 2 * q * (P + 1) + 2 * q * (N + 1) + N * (P + 1)
-         + bwd_tile_floats<N, P>(q) + 5 * MAX_Q + NRED * MAX_Q + WARPS;
-}
-
-// Stage one chunk of rows s0 .. s0 + q: x * dt into XDT, B and C.
-template <typename T, int N, int P>
-__device__ __forceinline__ void load_chunk(const T* x, const float* dt,
-                                           const T* b, const T* c, int s0,
-                                           int q, float* XDT, float* BS,
-                                           float* CS) {
-  constexpr int LP = P + 1, LN = N + 1;
-  for (int idx = threadIdx.x; idx < q * P; idx += THREADS) {
-    const int i = idx / P, p = idx % P;
-    XDT[i * LP + p] = to_f32(x[(int64_t)(s0 + i) * P + p]) * dt[s0 + i];
-  }
-  for (int idx = threadIdx.x; idx < q * N; idx += THREADS) {
-    const int i = idx / N, n = idx % N;
-    BS[i * LN + n] = to_f32(b[(int64_t)(s0 + i) * N + n]);
-    CS[i * LN + n] = to_f32(c[(int64_t)(s0 + i) * N + n]);
+// c[j] += A B_j^T for j < NT over K = 64: A the 16 rows at a_s (stride
+// SA), B_j rows 8j .. 8j + 7 of b_s (stride SB), both read along k.
+template <int NT, int SA, int SB, typename TA, typename TB>
+__device__ __forceinline__ void mma_rr(float (&c)[NT][4], const TA* a_s,
+                                       const TB* b_s, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < DIM / 8; ++ks) {
+    uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+    frag_a<SA>(ah, al, a_s, 8 * ks + t, g);
+    frag_b<NT, SB>(bh, bl, b_s, 8 * ks + t, g);
+    mma_passes<NT, !EXACT<TA>, !EXACT<TB>>(c, ah, al, bh, bl);
   }
 }
 
-// M[i][j] = (C_i . B_j) exp(cum_i - cum_j) for j <= i, else 0.
-template <int N>
-__device__ __forceinline__ void build_scores(const float* CS, const float* BS,
-                                             const float* CUM, float* M,
-                                             int q) {
-  constexpr int LN = N + 1;
-  for (int idx = threadIdx.x; idx < q * q; idx += THREADS) {
-    const int i = idx / q, j = idx % q;
-    float acc = 0.f;
-    if (j <= i) {
-      const float* ci = CS + i * LN;
-      const float* bj = BS + j * LN;
-#pragma unroll 8
-      for (int n = 0; n < N; ++n) acc += ci[n] * bj[n];
-      acc *= __expf(CUM[i] - CUM[j]);
+// A row tile's fragments for every 8-step of K = 64, split once and held
+// in registers while its warp walks the causal triangle (bf16: lo unused).
+template <typename TA>
+struct Held {
+  uint32_t hi[DIM / 8][4], lo[DIM / 8][4];
+};
+template <int SA, typename TA>
+__device__ __forceinline__ void hold(Held<TA>& f, const TA* a_s, int g,
+                                     int t) {
+#pragma unroll
+  for (int ks = 0; ks < DIM / 8; ++ks)
+    frag_a<SA>(f.hi[ks], f.lo[ks], a_s, 8 * ks + t, g);
+}
+
+// mma_rr with A's fragments held
+template <int NT, int SB, typename TA, typename TB>
+__device__ __forceinline__ void mma_hr(float (&c)[NT][4], const Held<TA>& a,
+                                       const TB* b_s, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < DIM / 8; ++ks) {
+    uint32_t bh[NT][2], bl[NT][2];
+    frag_b<NT, SB>(bh, bl, b_s, 8 * ks + t, g);
+    mma_passes<NT, !EXACT<TA>, !EXACT<TB>>(c, a.hi[ks], a.lo[ks], bh, bl);
+  }
+}
+
+// c[j] += A B_j for j < NT over K = 64: A's fragments held, B element
+// (k, n) = b_s[k SB + n] (k-major).
+template <int NT, int SB, typename TA, typename TB>
+__device__ __forceinline__ void mma_hk(float (&c)[NT][4], const Held<TA>& a,
+                                       const TB* b_s, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < DIM / 8; ++ks) {
+    const int k0 = ks * 8 + t;
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      split_in_alu(b_s[k0 * SB + 8 * j + g], bh[j][0], bl[j][0]);
+      split_in_alu(b_s[(k0 + 4) * SB + 8 * j + g], bh[j][1], bl[j][1]);
     }
-    M[i * (q + 1) + j] = acc;
+    mma_passes<NT, !EXACT<TA>, !EXACT<TB>>(c, a.hi[ks], a.lo[ks], bh, bl);
   }
 }
 
-template <typename T, int N, int P>
-__global__ void __launch_bounds__(THREADS)
-ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ a_coef, const T* __restrict__ b_in,
-               const T* __restrict__ c_in, T* __restrict__ y,
-               float* __restrict__ state_out, float* __restrict__ carries,
-               int H, int S, int Q) {
-  static_assert(N % 32 == 0 && P % 32 == 0, "N, P multiples of 32");
-  constexpr int LP = P + 1, LN = N + 1;
-  extern __shared__ float smem[];
-  float* XDT = smem;               // (Q, P + 1) x * dt
-  float* BS = XDT + Q * LP;        // (Q, N + 1)
-  float* CS = BS + Q * LN;         // (Q, N + 1)
-  float* M = CS + Q * LN;          // (Q, Q + 1) scores o decay
-  float* ST = M + Q * (Q + 1);     // (N, P + 1) state
-  float* CUM = ST + N * LP;        // (Q) inclusive cumsum of dt * a
-  float* E = CUM + MAX_Q;          // (Q) exp(cum)
-  float* F = E + MAX_Q;            // (Q) exp(cum_last - cum)
+// c[n] += P B for n < NT: P (16 x 8 KT, fp32) in accumulator fragments
+// (p[j] holds rows g, g + 8 at columns 8j + 2t, 8j + 2t + 1), B element
+// (k, n) = b_s[k SB + n] for k < 8 KT.  Within each 8-step the k order is
+// permuted (k = t -> 2t, k = t + 4 -> 2t + 1) so P enters from its
+// registers; P is always split.
+template <int KT, int NT, int SB, typename TB>
+__device__ __forceinline__ void mma_fr(float (&c)[NT][4],
+                                       const float (&p)[KT][4],
+                                       const TB* b_s, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    uint32_t ah[4], al[4];
+    split_tf32_alu(p[kk][0], ah[0], al[0]);
+    split_tf32_alu(p[kk][2], ah[1], al[1]);
+    split_tf32_alu(p[kk][1], ah[2], al[2]);
+    split_tf32_alu(p[kk][3], ah[3], al[3]);
+    const TB* b = b_s + (8 * kk + 2 * t) * SB + g;
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      split_in_alu(b[8 * n], bh[n][0], bl[n][0]);
+      split_in_alu(b[SB + 8 * n], bh[n][1], bl[n][1]);
+    }
+    mma_passes<NT, true, !EXACT<TB>>(c, ah, al, bh, bl);
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int h = bh % H, b = bh / H;
+// ---------------------------------------------------------------------------
+// pass 1: chunk-local states
+// ---------------------------------------------------------------------------
+
+constexpr int P1_THREADS = 128;
+
+template <typename TU, typename TV>
+constexpr int p1_smem() {
+  return MAX_Q * ROW_STRIDE<TU> * (int)sizeof(TU)
+         + MAX_Q * ROW_STRIDE<TV> * (int)sizeof(TV) + 2 * MAX_Q * 4;
+}
+
+// out[b, h, c] = U_c^T diag(coef) V_c (N, P) over the chunk's rows, and
+// decay[b, h, c] = exp(cum_Q).  Forward (FWD): U = B, V = x, coef_j =
+// exp(cum_Q - cum_j) dt_j; backward: U = C, V = dy, coef_i = exp(cum_i).
+// Warp w owns rows n = 16w .. 16w + 15 of the result.
+template <typename TU, typename TV, bool FWD>
+__global__ void __launch_bounds__(P1_THREADS)
+ssd_chunk_state_kernel(const TU* __restrict__ u_in,
+                       const TV* __restrict__ v_in,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ a_coef,
+                       float* __restrict__ out, float* __restrict__ decay,
+                       int H, int S, int Q) {
+  constexpr int SU = ROW_STRIDE<TU>, SV = ROW_STRIDE<TV>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TU* u_s = reinterpret_cast<TU*>(smem_raw);
+  TV* v_s = reinterpret_cast<TV*>(u_s + MAX_Q * SU);
+  float* CUM = reinterpret_cast<float*>(v_s + MAX_Q * SV);
+  float* COEF = CUM + MAX_Q;
+
   const int nc = S / Q;
-  const float a = a_coef[h];
-  const T* xb = x + (int64_t)bh * S * P;
-  const float* dtb = dt + (int64_t)bh * S;
-  const T* bb = b_in + (int64_t)b * S * N;
-  const T* cb = c_in + (int64_t)b * S * N;
-  T* yb = y + (int64_t)bh * S * P;
-  for (int i = tid; i < N * LP; i += THREADS) ST[i] = 0.f;
+  const int c = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int b = bh / H, h = bh % H;
+  const int s0 = c * Q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ksteps = (Q + 7) / 8;
 
-  for (int c = 0; c < nc; ++c) {
-    const int s0 = c * Q;
-    __syncthreads();  // the previous chunk is done with every tile
-    load_chunk<T, N, P>(xb, dtb, bb, cb, s0, Q, XDT, BS, CS);
-    if (tid < 32) warp_scan(dtb + s0, a, CUM, Q, false);
-    if (carries != nullptr) {
-      float* dst = carries + ((int64_t)bh * nc + c) * N * P;
-      for (int idx = tid; idx < N * P; idx += THREADS)
-        dst[idx] = ST[(idx / P) * LP + idx % P];
+  load_rows<P1_THREADS>(u_s, u_in + ((int64_t)b * S + s0) * DIM, Q,
+                        8 * ksteps);
+  load_rows<P1_THREADS>(v_s, v_in + ((int64_t)bh * S + s0) * DIM, Q,
+                        8 * ksteps);
+  cp_commit();
+  if (warp == 0) {
+    float v[4];
+    chunk_cum(dt + (int64_t)bh * S + s0, a_coef[h], Q, CUM, COEF, v);
+    const float cum_q = CUM[Q - 1];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 4 * lane + r;
+      COEF[k] = FWD ? expf(cum_q - v[r]) * COEF[k] : expf(v[r]);
     }
-    __syncthreads();
-    for (int i = tid; i < Q; i += THREADS) {
-      E[i] = __expf(CUM[i]);
-      F[i] = __expf(CUM[Q - 1] - CUM[i]);
-    }
-    build_scores<N>(CS, BS, CUM, M, Q);
-    __syncthreads();
-    // y[i, p] = sum_{j <= i} M[i, j] xdt[j, p] + exp(cum_i) sum_n C[i, n] S[n, p]
-    for (int idx = tid; idx < Q * P; idx += THREADS) {
-      const int i = idx / P, p = idx % P;
-      float acc = 0.f, inter = 0.f;
-      for (int j = 0; j <= i; ++j) acc += M[i * (Q + 1) + j] * XDT[j * LP + p];
-#pragma unroll 8
-      for (int n = 0; n < N; ++n) inter += CS[i * LN + n] * ST[n * LP + p];
-      yb[(int64_t)(s0 + i) * P + p] = from_f32<T>(acc + E[i] * inter);
-    }
-    __syncthreads();
-    // S[n, p] <- exp(cum_last) S[n, p] + sum_j exp(cum_last - cum_j) B[j, n] xdt[j, p]
-    const float alpha = E[Q - 1];
-    for (int idx = tid; idx < N * P; idx += THREADS) {
-      const int n = idx / P, p = idx % P;
-      float acc = 0.f;
-      for (int j = 0; j < Q; ++j) acc += F[j] * BS[j * LN + n] * XDT[j * LP + p];
-      ST[n * LP + p] = alpha * ST[n * LP + p] + acc;
-    }
+    if (lane == 0) decay[blockIdx.x] = expf(cum_q);
   }
+  cp_wait<0>();
   __syncthreads();
-  float* out = state_out + (int64_t)bh * N * P;
-  for (int idx = tid; idx < N * P; idx += THREADS)
-    out[idx] = ST[(idx / P) * LP + idx % P];
+
+  float acc[DIM / 8][4];
+  zero(acc);
+  const TU* a_s = u_s + 16 * warp;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int ka = 8 * ks + 2 * t;  // k = t -> 2t, k = t + 4 -> 2t + 1
+    const float ca = COEF[ka], cb = COEF[ka + 1];
+    uint32_t ah[4], al[4];
+    split_tf32_alu(to_f32(a_s[ka * SU + g]) * ca, ah[0], al[0]);
+    split_tf32_alu(to_f32(a_s[ka * SU + g + 8]) * ca, ah[1], al[1]);
+    split_tf32_alu(to_f32(a_s[(ka + 1) * SU + g]) * cb, ah[2], al[2]);
+    split_tf32_alu(to_f32(a_s[(ka + 1) * SU + g + 8]) * cb, ah[3], al[3]);
+    const TV* bp = v_s + ka * SV + g;
+    uint32_t bh_[DIM / 8][2], bl_[DIM / 8][2];
+#pragma unroll
+    for (int n = 0; n < DIM / 8; ++n) {
+      split_in_alu(bp[8 * n], bh_[n][0], bl_[n][0]);
+      split_in_alu(bp[SV + 8 * n], bh_[n][1], bl_[n][1]);
+    }
+    mma_passes<DIM / 8, true, !EXACT<TV>>(acc, ah, al, bh_, bl_);
+  }
+  float* o = out + (int64_t)blockIdx.x * CELLS + (16 * warp + g) * DIM + 2 * t;
+#pragma unroll
+  for (int n = 0; n < DIM / 8; ++n) {
+    store2(o + 8 * n, acc[n][0], acc[n][1]);
+    store2(o + 8 * DIM + 8 * n, acc[n][2], acc[n][3]);
+  }
 }
 
-template <typename T, int N, int P>
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ a_coef, const T* __restrict__ b_in,
-               const T* __restrict__ c_in, const float* __restrict__ carries,
-               const float* __restrict__ dy, const float* __restrict__ dstate,
-               float* __restrict__ dx, float* __restrict__ ddt,
-               float* __restrict__ dlog, float* __restrict__ db_h,
-               float* __restrict__ dc_h, int H, int S, int Q) {
-  static_assert(N % 32 == 0 && P % 32 == 0, "N, P multiples of 32");
-  constexpr int LP = P + 1, LN = N + 1;
-  extern __shared__ float smem[];
-  float* XDT = smem;               // (Q, P + 1) x * dt
-  float* DY = XDT + Q * LP;        // (Q, P + 1)
-  float* BS = DY + Q * LP;         // (Q, N + 1)
-  float* CS = BS + Q * LN;         // (Q, N + 1)
-  float* G = CS + Q * LN;          // (N, P + 1) cotangent of the chunk's end
-  float* TILE = G + N * LP;        // carry (N, P + 1), then M, then w
-  float* CUM = TILE + bwd_tile_floats<N, P>(Q);
-  float* E = CUM + MAX_Q;          // exp(cum)
-  float* F = E + MAX_Q;            // exp(cum_last - cum)
-  float* DCUM = F + MAX_Q;         // cotangent of cum
-  float* DLOG = DCUM + MAX_Q;      // its suffix sums
-  // per row, two halves each: t2, u, sum_p dxdt x, column and row sums of t
-  float* RED = DLOG + MAX_Q;
-  float* WSUM = RED + NRED * MAX_Q;  // per-warp partials of <S_prev, G>
+// ---------------------------------------------------------------------------
+// pass 2: state passing
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
-  const int bh = blockIdx.x;
-  const int h = bh % H, b = bh / H;
+constexpr int P2_THREADS = 256;
+constexpr int P2_BLOCKS = CELLS / (4 * P2_THREADS);  // blocks per (b, h)
+
+// buf (B H, nc, N P): slot c holds the chunk-local term on entry and the
+// state entering chunk c on exit (reverse: the cotangent of the state
+// leaving it).  run = init (or 0); per chunk in order (reverse: from the
+// last) slot <- run, run <- decay_c run + the slot's old value; the final
+// run goes to final_out where given.  Four cells a thread.
+__global__ void __launch_bounds__(P2_THREADS)
+ssd_state_pass_kernel(float* __restrict__ buf,
+                      const float* __restrict__ decay,
+                      const float* __restrict__ init,
+                      float* __restrict__ final_out, int nc, int reverse) {
+  const int bh = blockIdx.x / P2_BLOCKS;
+  const int cell = (blockIdx.x % P2_BLOCKS) * 4 * P2_THREADS
+                   + 4 * threadIdx.x;
+  float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (init != nullptr)
+    run = *reinterpret_cast<const float4*>(init + (int64_t)bh * CELLS + cell);
+  for (int step = 0; step < nc; ++step) {
+    const int c = reverse ? nc - 1 - step : step;
+    float4* slot = reinterpret_cast<float4*>(
+        buf + ((int64_t)bh * nc + c) * CELLS + cell);
+    const float4 local = *slot;
+    const float alpha = decay[(int64_t)bh * nc + c];
+    *slot = run;
+    run.x = fmaf(alpha, run.x, local.x);
+    run.y = fmaf(alpha, run.y, local.y);
+    run.z = fmaf(alpha, run.z, local.z);
+    run.w = fmaf(alpha, run.w, local.w);
+  }
+  if (final_out != nullptr)
+    *reinterpret_cast<float4*>(final_out + (int64_t)bh * CELLS + cell) = run;
+}
+
+// ---------------------------------------------------------------------------
+// pass 3, forward: y
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_THREADS = 128;
+
+template <typename T>
+constexpr int fwd_smem() {
+  return 3 * MAX_Q * ROW_STRIDE<T> * (int)sizeof(T) + 3 * MAX_Q * 4;
+}
+
+// y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j + exp(cum_i)
+// C_i S_c for the chunk's rows.  Warp w owns row tiles w and 7 - w.
+template <typename T>
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+ssd_fwd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ a_coef,
+                   const T* __restrict__ b_in, const T* __restrict__ c_in,
+                   const float* __restrict__ states, T* __restrict__ y,
+                   int H, int S, int Q) {
+  constexpr int ST = ROW_STRIDE<T>;
+  static_assert(MAX_Q * ST * sizeof(T) >= DIM * ST32 * 4,
+                "the state fits in x's tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* c_s = reinterpret_cast<T*>(smem_raw);
+  T* b_s = c_s + MAX_Q * ST;
+  T* x_s = b_s + MAX_Q * ST;
+  float* st_s = reinterpret_cast<float*>(x_s);  // S_c^T (P, N) until x lands
+  float* CUM = reinterpret_cast<float*>(x_s + MAX_Q * ST);
+  float* DT = CUM + MAX_Q;
+  float* E = DT + MAX_Q;
+
   const int nc = S / Q;
-  const int TQ = Q + 1;
-  const float a = a_coef[h];
-  const T* xb = x + (int64_t)bh * S * P;
-  const float* dtb = dt + (int64_t)bh * S;
-  const T* bb = b_in + (int64_t)b * S * N;
-  const T* cb = c_in + (int64_t)b * S * N;
-  const float* dyb = dy + (int64_t)bh * S * P;
-  float* dxb = dx + (int64_t)bh * S * P;
-  float* dbb = db_h + (int64_t)bh * S * N;
-  float* dcb = dc_h + (int64_t)bh * S * N;
-  for (int idx = tid; idx < N * P; idx += THREADS)
-    G[(idx / P) * LP + idx % P] = dstate[(int64_t)bh * N * P + idx];
+  const int c = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int b = bh / H, h = bh % H;
+  const int s0 = c * Q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nt = (Q + 15) / 16;  // row tiles holding the chunk's rows
 
-  for (int c = nc - 1; c >= 0; --c) {
-    const int s0 = c * Q;
-    __syncthreads();
-    load_chunk<T, N, P>(xb, dtb, bb, cb, s0, Q, XDT, BS, CS);
-    for (int idx = tid; idx < Q * P; idx += THREADS)
-      DY[(idx / P) * LP + idx % P] = dyb[(int64_t)s0 * P + idx];
-    const float* carry = carries + ((int64_t)bh * nc + c) * N * P;
-    for (int idx = tid; idx < N * P; idx += THREADS)
-      TILE[(idx / P) * LP + idx % P] = carry[idx];
-    if (tid < 32) warp_scan(dtb + s0, a, CUM, Q, false);
-    __syncthreads();
-    for (int i = tid; i < Q; i += THREADS) {
-      E[i] = __expf(CUM[i]);
-      F[i] = __expf(CUM[Q - 1] - CUM[i]);
+  load_rows<FWD_THREADS>(c_s, c_in + ((int64_t)b * S + s0) * DIM, Q, 16 * nt);
+  load_rows<FWD_THREADS>(b_s, b_in + ((int64_t)b * S + s0) * DIM, Q, 16 * nt);
+  cp_commit();
+  const float* st = states + (int64_t)blockIdx.x * CELLS;
+  for (int i = threadIdx.x; i < CELLS; i += FWD_THREADS)
+    st_s[(i % DIM) * ST32 + i / DIM] = st[i];
+  if (warp == 0) {
+    float v[4];
+    chunk_cum(dt + (int64_t)bh * S + s0, a_coef[h], Q, CUM, DT, v);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) E[4 * lane + r] = expf(v[r]);
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  const int tiles[2] = {warp, 7 - warp};
+  // the carried-state term of both row tiles: C_I S_c, in its own
+  // accumulator
+  float inter[2][DIM / 8][4];
+  zero(inter[0]);
+  zero(inter[1]);
+  {
+    const T* a0 = c_s + 16 * tiles[0] * ST;
+    const T* a1 = c_s + 16 * tiles[1] * ST;
+#pragma unroll
+    for (int ks = 0; ks < DIM / 8; ++ks) {  // S^T's fragments split once
+      uint32_t ah[4], al[4], bh[DIM / 8][2], bl[DIM / 8][2];
+      frag_b<DIM / 8, ST32>(bh, bl, st_s, 8 * ks + t, g);
+      frag_a<ST>(ah, al, a0, 8 * ks + t, g);
+      mma_passes<DIM / 8, !EXACT<T>, true>(inter[0], ah, al, bh, bl);
+      frag_a<ST>(ah, al, a1, 8 * ks + t, g);
+      mma_passes<DIM / 8, !EXACT<T>, true>(inter[1], ah, al, bh, bl);
     }
-    __syncthreads();
-    // 1. the carried-state terms: dc_state[i, n] = e_i sum_p dy[i, p] S[n, p]
-    //    and db_state[j, n] = f_j sum_p xdt[j, p] g[n, p], written out now
-    //    and completed in step 5; t2_i = C_i . dc_state_i, u_j = B_j .
-    //    db_state_j; and <S_prev, g>.  A warp covers 32 n of one row.
-    for (int idx = tid; idx < Q * N; idx += THREADS) {
-      const int i = idx / N, n = idx % N;
-      float ys = 0.f, xg = 0.f;
-#pragma unroll 8
-      for (int p = 0; p < P; ++p) {
-        ys += DY[i * LP + p] * TILE[n * LP + p];
-        xg += XDT[i * LP + p] * G[n * LP + p];
-      }
-      const float dcs = E[i] * ys, dbs = F[i] * xg;
-      const int64_t o = (int64_t)(s0 + i) * N + n;
-      dcb[o] = dcs;
-      dbb[o] = dbs;
-      const float t2 = warp_sum(CS[i * LN + n] * dcs);
-      const float u = warp_sum(BS[i * LN + n] * dbs);
-      if (lane == 0) {
-        RED[i * NRED + 0 + n / 32] = t2;
-        RED[i * NRED + 2 + n / 32] = u;
+  }
+  __syncthreads();  // every warp is done with the state: x may land there
+  load_rows<FWD_THREADS>(x_s, x + ((int64_t)bh * S + s0) * DIM, Q, 16 * nt);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  T* yb = y + ((int64_t)bh * S + s0) * DIM;
+#pragma unroll  // inter[u] stays in registers
+  for (int u = 0; u < 2; ++u) {
+    const int I = tiles[u];
+    if (I >= nt) continue;
+    const int i0 = 16 * I + g;  // this thread's rows: i0, i0 + 8
+    float yacc[DIM / 8][4];
+    zero(yacc);
+    Held<T> cf;  // C_I
+    hold<ST>(cf, c_s + 16 * I * ST, g, t);
+#pragma unroll 1
+    for (int j0 = 0; j0 < 16 * I + 16; j0 += TW) {
+      float m[NS][4];
+      zero(m);
+      mma_hr<NS, ST>(m, cf, b_s + j0 * ST, g, t);
+#pragma unroll
+      for (int jt = 0; jt < NS; ++jt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + 8 * (e >> 1);
+          const int j = j0 + 8 * jt + 2 * t + (e & 1);
+          m[jt][e] = j <= i ? m[jt][e] * expf(CUM[i] - CUM[j]) * DT[j] : 0.f;
+        }
+      mma_fr<NS, DIM / 8, ST>(yacc, m, x_s + j0 * ST, g, t);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      if (i >= Q) continue;
+      const float e = E[i];
+      T* row = yb + (int64_t)i * DIM + 2 * t;
+#pragma unroll
+      for (int n = 0; n < DIM / 8; ++n)
+        store2(row + 8 * n, fmaf(e, inter[u][n][2 * r], yacc[n][2 * r]),
+               fmaf(e, inter[u][n][2 * r + 1], yacc[n][2 * r + 1]));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pass 3, backward
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_THREADS = 256;
+constexpr int NROW = 9;  // per-row arrays: CUM DT E F ROW COL T2 U DOT
+
+template <typename T>
+constexpr int bwd_smem() {
+  return 3 * MAX_Q * ROW_STRIDE<T> * (int)sizeof(T)
+         + 2 * MAX_Q * ST32 * 4 + 2 * DIM * ST32 * 4 + NROW * MAX_Q * 4
+         + 8 * 4;
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Per chunk, from the inputs, S_c (the carry) and G_c (the cotangent of the
+// state leaving the chunk), with decay_ij = exp(cum_i - cum_j) for j <= i,
+// scores = C B^T, w = decay o (dy x^T) diag(dt), M = scores o decay:
+//   dxdt = M^T dy + f o (B G),  dx = dxdt dt,  f_j = exp(cum_Q - cum_j)
+//   dc = w B + e o (dy S^T),    e_i = exp(cum_i)
+//   db = w^T C + f dt o (x G^T)
+//   dcum = rowsum(t) - colsum(t) + t2 - u, t = scores o w, t2_i = C_i .
+//   (e_i dy_i S^T), u_j = B_j . (f_j dt_j x_j G^T); the last row also
+//   sum_j u_j + exp(cum_Q) <S_c, G_c>; dlog = suffix sums of dcum;
+//   ddt = a dlog + sum_p dxdt x.
+// Warps 0-3 (row tiles I in pairs): the dB state term of tiles I into DBS
+// and u, <S, G>, then per I: scores and w against every J <= I, rowsum(t),
+// dc.  Warps 4-7 (column tiles J in pairs): per J, M^T and w^T against
+// every I >= J, colsum(t), dx, sum_p dxdt x, and db with DBS added.
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+ssd_bwd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ a_coef,
+                   const T* __restrict__ b_in, const T* __restrict__ c_in,
+                   const float* __restrict__ carries,
+                   const float* __restrict__ gbuf,
+                   const float* __restrict__ dy, float* __restrict__ dx,
+                   float* __restrict__ ddt, float* __restrict__ dlog,
+                   float* __restrict__ db_h, float* __restrict__ dc_h, int H,
+                   int S, int Q) {
+  constexpr int ST = ROW_STRIDE<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* c_s = reinterpret_cast<T*>(smem_raw);
+  T* b_s = c_s + MAX_Q * ST;
+  T* x_s = b_s + MAX_Q * ST;
+  float* dy_s = reinterpret_cast<float*>(x_s + MAX_Q * ST);  // (Q, 68)
+  float* dbs_s = dy_s + MAX_Q * ST32;  // dB's state term (Q, 68)
+  float* s_s = dbs_s + MAX_Q * ST32;   // S_c (N, 68)
+  float* g_s = s_s + DIM * ST32;       // G_c (N, 68)
+  float* CUM = g_s + DIM * ST32;
+  float* DT = CUM + MAX_Q;
+  float* E = DT + MAX_Q;
+  float* F = E + MAX_Q;
+  float* ROW = F + MAX_Q;
+  float* COL = ROW + MAX_Q;
+  float* T2 = COL + MAX_Q;
+  float* U = T2 + MAX_Q;
+  float* DOT = U + MAX_Q;
+  float* SGW = DOT + MAX_Q;  // per row warp: its share of <S_c, G_c>
+
+  const int nc = S / Q;
+  const int c = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int b = bh / H, h = bh % H;
+  const int s0 = c * Q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nt = (Q + 15) / 16;
+  const float a = a_coef[h];
+  const int64_t row0 = (int64_t)bh * S + s0;  // the chunk's first (b, h) row
+
+  load_rows<BWD_THREADS>(c_s, c_in + ((int64_t)b * S + s0) * DIM, Q, 16 * nt);
+  load_rows<BWD_THREADS>(b_s, b_in + ((int64_t)b * S + s0) * DIM, Q, 16 * nt);
+  load_rows<BWD_THREADS>(x_s, x + row0 * DIM, Q, 16 * nt);
+  load_rows<BWD_THREADS>(dy_s, dy + row0 * DIM, Q, 16 * nt);
+  load_rows<BWD_THREADS>(s_s, carries + (int64_t)blockIdx.x * CELLS, DIM, DIM);
+  load_rows<BWD_THREADS>(g_s, gbuf + (int64_t)blockIdx.x * CELLS, DIM, DIM);
+  cp_commit();
+  if (warp == 0) {
+    float v[4];
+    chunk_cum(dt + row0, a, Q, CUM, DT, v);
+    const float cum_q = CUM[Q - 1];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      E[4 * lane + r] = expf(v[r]);
+      F[4 * lane + r] = expf(cum_q - v[r]);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- row warps: the dB state term, <S, G>, then scores, w, dc ----
+    const int tiles[2] = {warp, 7 - warp};
+#pragma unroll 1
+    for (int u = 0; u < 2; ++u) {
+      const int J = tiles[u];
+      if (J >= nt) continue;
+      float dbs[DIM / 8][4];
+      zero(dbs);
+      mma_rr<DIM / 8, ST, ST32>(dbs, x_s + 16 * J * ST, g_s, g, t);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = 16 * J + g + 8 * r;
+        const float fd = F[j] * DT[j];
+        float us = 0.f;
+#pragma unroll
+        for (int n = 0; n < DIM / 8; ++n) {
+          const int col = 8 * n + 2 * t;
+          const float d0 = fd * dbs[n][2 * r], d1 = fd * dbs[n][2 * r + 1];
+          store2(dbs_s + j * ST32 + col, d0, d1);
+          us += to_f32(b_s[j * ST + col]) * d0
+                + to_f32(b_s[j * ST + col + 1]) * d1;
+        }
+        us = quad_sum(us);
+        if (t == 0) U[j] = us;
       }
     }
     float sg = 0.f;
-    for (int idx = tid; idx < N * P; idx += THREADS) {
-      const int cell = (idx / P) * LP + idx % P;
-      sg += TILE[cell] * G[cell];
+    for (int i = threadIdx.x; i < CELLS; i += 128) {
+      const int at = (i / DIM) * ST32 + i % DIM;
+      sg += s_s[at] * g_s[at];
     }
-    sg = warp_sum(sg);
-    if (lane == 0) WSUM[warp] = sg;
-    __syncthreads();
-    // 2. TILE <- M = scores o decay
-    build_scores<N>(CS, BS, CUM, TILE, Q);
-    __syncthreads();
-    // 3. per (r, p): dxdt_intra[r, p] = sum_{i >= r} M[i, r] dy[i, p] (column
-    //    r of M) and y_intra[r, p] = sum_{j <= r} M[r, j] xdt[j, p] (row r);
-    //    dxdt = dxdt_intra + f_r (B_r g)[p]; dx = dxdt dt_r.  The row sums
-    //    of t = M o (dy xdt^T) are sum_p dy y_intra, its column sums
-    //    sum_p xdt dxdt_intra.
-    for (int idx = tid; idx < Q * P; idx += THREADS) {
-      const int r = idx / P, p = idx % P;
-      float dxi = 0.f, yi = 0.f, bg = 0.f;
-      for (int i = r; i < Q; ++i) dxi += TILE[i * TQ + r] * DY[i * LP + p];
-      for (int j = 0; j <= r; ++j) yi += TILE[r * TQ + j] * XDT[j * LP + p];
-#pragma unroll 8
-      for (int n = 0; n < N; ++n) bg += BS[r * LN + n] * G[n * LP + p];
-      const float dxdt = dxi + F[r] * bg;
-      const int64_t o = (int64_t)(s0 + r) * P + p;
-      dxb[o] = dxdt * dtb[s0 + r];
-      const float dot = warp_sum(dxdt * to_f32(xb[o]));
-      const float col = warp_sum(XDT[r * LP + p] * dxi);
-      const float row = warp_sum(DY[r * LP + p] * yi);
-      if (lane == 0) {
-        RED[r * NRED + 4 + p / 32] = dot;
-        RED[r * NRED + 6 + p / 32] = col;
-        RED[r * NRED + 8 + p / 32] = row;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sg += __shfl_xor_sync(0xffffffffu, sg, off);
+    if (lane == 0) SGW[warp] = sg;
+    __threadfence_block();
+    bar_arrive(1, BWD_THREADS);  // DBS is written
+
+#pragma unroll 1
+    for (int u = 0; u < 2; ++u) {
+      const int I = tiles[u];
+      if (I >= nt) continue;
+      const int i0 = 16 * I + g;
+      float dc[DIM / 8][4];
+      zero(dc);
+      float rs[2] = {0.f, 0.f};
+      Held<T> cf;      // C_I
+      Held<float> df;  // dy_I
+      hold<ST>(cf, c_s + 16 * I * ST, g, t);
+      hold<ST32>(df, dy_s + 16 * I * ST32, g, t);
+#pragma unroll 1
+      for (int j0 = 0; j0 < 16 * I + 16; j0 += TW) {
+        float s[NS][4], w[NS][4];
+        zero(s);
+        zero(w);
+        mma_hr<NS, ST>(s, cf, b_s + j0 * ST, g, t);
+        mma_hr<NS, ST>(w, df, x_s + j0 * ST, g, t);
+#pragma unroll
+        for (int jt = 0; jt < NS; ++jt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = i0 + 8 * (e >> 1);
+            const int j = j0 + 8 * jt + 2 * t + (e & 1);
+            const float wv =
+                j <= i ? w[jt][e] * expf(CUM[i] - CUM[j]) * DT[j] : 0.f;
+            rs[e >> 1] = fmaf(s[jt][e], wv, rs[e >> 1]);
+            w[jt][e] = wv;
+          }
+        mma_fr<NS, DIM / 8, ST>(dc, w, b_s + j0 * ST, g, t);
+      }
+      // the carried-state term e_i dy_i S^T in its own accumulator
+      float dcs[DIM / 8][4];
+      zero(dcs);
+      mma_hr<DIM / 8, ST32>(dcs, df, s_s, g, t);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + 8 * r;
+        const float e = E[i];
+        float t2 = 0.f;
+        float* out = dc_h + (row0 + i) * DIM + 2 * t;
+#pragma unroll
+        for (int n = 0; n < DIM / 8; ++n) {
+          const int col = 8 * n + 2 * t;
+          const float s0_ = e * dcs[n][2 * r], s1_ = e * dcs[n][2 * r + 1];
+          t2 += to_f32(c_s[i * ST + col]) * s0_
+                + to_f32(c_s[i * ST + col + 1]) * s1_;
+          if (i < Q)
+            store2(out + 8 * n, dc[n][2 * r] + s0_, dc[n][2 * r + 1] + s1_);
+        }
+        t2 = quad_sum(t2);
+        const float rsum = quad_sum(rs[r]);
+        if (t == 0) {
+          T2[i] = t2;
+          ROW[i] = rsum;
+        }
       }
     }
-    __syncthreads();
-    // 4. TILE <- w[i, j] = exp(cum_i - cum_j) (dy_i . xdt_j), j <= i
-    for (int idx = tid; idx < Q * Q; idx += THREADS) {
-      const int i = idx / Q, j = idx % Q;
-      float acc = 0.f;
-      if (j <= i) {
-        const float* yi = DY + i * LP;
-        const float* xj = XDT + j * LP;
-#pragma unroll 8
-        for (int p = 0; p < P; ++p) acc += yi[p] * xj[p];
-        acc *= __expf(CUM[i] - CUM[j]);
+  } else {
+    // ---- column warps: M^T dy, w^T C, dx, db ----
+    const int p = warp - 4;
+    const int tiles[2] = {p, 7 - p};
+    bool dbs_ready = false;
+#pragma unroll 1
+    for (int u = 0; u < 2; ++u) {
+      const int J = tiles[u];
+      if (J >= nt) continue;
+      const int j0 = 16 * J + g;  // this thread's rows: j0, j0 + 8
+      float dxa[DIM / 8][4], dba[DIM / 8][4];
+      zero(dxa);
+      zero(dba);
+      float cs[2] = {0.f, 0.f};
+      Held<T> bf, xf;  // B_J, x_J
+      hold<ST>(bf, b_s + 16 * J * ST, g, t);
+      hold<ST>(xf, x_s + 16 * J * ST, g, t);
+#pragma unroll 1
+      for (int i0 = 16 * J; i0 < 16 * nt; i0 += TW) {
+        float m[NS][4], w[NS][4];
+        zero(m);
+        zero(w);
+        mma_hr<NS, ST>(m, bf, c_s + i0 * ST, g, t);
+        mma_hr<NS, ST32>(w, xf, dy_s + i0 * ST32, g, t);
+#pragma unroll
+        for (int it = 0; it < NS; ++it)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = j0 + 8 * (e >> 1);
+            const int i = i0 + 8 * it + 2 * t + (e & 1);
+            const float dec = i >= j ? expf(CUM[i] - CUM[j]) : 0.f;
+            const float wv = w[it][e] * dec * DT[j];
+            cs[e >> 1] = fmaf(m[it][e], wv, cs[e >> 1]);
+            m[it][e] *= dec;
+            w[it][e] = wv;
+          }
+        mma_fr<NS, DIM / 8, ST32>(dxa, m, dy_s + i0 * ST32, g, t);
+        mma_fr<NS, DIM / 8, ST>(dba, w, c_s + i0 * ST, g, t);
       }
-      TILE[i * TQ + j] = acc;
+      // the state-update term f_j B_j G in its own accumulator
+      float dxs[DIM / 8][4];
+      zero(dxs);
+      mma_hk<DIM / 8, ST32>(dxs, bf, g_s, g, t);
+      if (!dbs_ready) {
+        bar_sync(1, BWD_THREADS);
+        dbs_ready = true;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = j0 + 8 * r;
+        const float f = F[j], d = DT[j];
+        float dot = 0.f;
+        const int64_t at = (row0 + j) * DIM + 2 * t;
+#pragma unroll
+        for (int n = 0; n < DIM / 8; ++n) {
+          const int col = 8 * n + 2 * t;
+          const float v0 = fmaf(f, dxs[n][2 * r], dxa[n][2 * r]);
+          const float v1 = fmaf(f, dxs[n][2 * r + 1], dxa[n][2 * r + 1]);
+          dot += v0 * to_f32(x_s[j * ST + col]) + v1 * to_f32(x_s[j * ST + col + 1]);
+          if (j < Q) {
+            store2(dx + at + 8 * n, v0 * d, v1 * d);
+            store2(db_h + at + 8 * n, dba[n][2 * r] + dbs_s[j * ST32 + col],
+                   dba[n][2 * r + 1] + dbs_s[j * ST32 + col + 1]);
+          }
+        }
+        dot = quad_sum(dot);
+        const float csum = quad_sum(cs[r]);
+        if (t == 0) {
+          DOT[j] = dot;
+          COL[j] = csum;
+        }
+      }
     }
-    __syncthreads();
-    // 5. dc[r, n] += sum_{j <= r} w[r, j] B[j, n]; db[r, n] += sum_{i >= r}
-    //    w[i, r] C[i, n] (each cell by the thread that wrote it in step 1)
-    for (int idx = tid; idx < Q * N; idx += THREADS) {
-      const int r = idx / N, n = idx % N;
-      float dci = 0.f, dbi = 0.f;
-      for (int j = 0; j <= r; ++j) dci += TILE[r * TQ + j] * BS[j * LN + n];
-      for (int i = r; i < Q; ++i) dbi += TILE[i * TQ + r] * CS[i * LN + n];
-      const int64_t o = (int64_t)(s0 + r) * N + n;
-      dcb[o] += dci;
-      dbb[o] += dbi;
+    if (!dbs_ready) bar_sync(1, BWD_THREADS);
+  }
+  __syncthreads();
+
+  // dcum, its suffix sums dlog and ddt, by one warp (lane L: rows 4L ..)
+  if (warp == 0) {
+    float dc[4], us = 0.f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 4 * lane + r;
+      dc[r] = k < Q ? ROW[k] - COL[k] + T2[k] - U[k] : 0.f;
+      us += k < Q ? U[k] : 0.f;
     }
-    // 6. dcum = rowsum(t) - colsum(t) + t2 - u, the last row also
-    //    sum_j u_j + alpha <S_prev, g>; dlog = suffix sums of dcum
-    for (int r = tid; r < Q; r += THREADS) {
-      const float* row = RED + r * NRED;
-      DCUM[r] = (row[8] + row[9]) - (row[6] + row[7]) + (row[0] + row[1])
-                - (row[2] + row[3]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      us += __shfl_xor_sync(0xffffffffu, us, off);
+    const float sg = SGW[0] + SGW[1] + SGW[2] + SGW[3];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (4 * lane + r == Q - 1) dc[r] += us + E[Q - 1] * sg;
+    float run = 0.f, suf[4];
+#pragma unroll
+    for (int r = 3; r >= 0; --r) {
+      run += dc[r];
+      suf[r] = run;
     }
-    __syncthreads();
-    if (tid == 0) {
-      float last = 0.f, sgt = 0.f;
-      for (int j = 0; j < Q; ++j) last += RED[j * NRED + 2] + RED[j * NRED + 3];
-      for (int w = 0; w < WARPS; ++w) sgt += WSUM[w];
-      DCUM[Q - 1] += last + E[Q - 1] * sgt;
+    float tot = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float dn = __shfl_down_sync(0xffffffffu, tot, off);
+      if (lane + off < 32) tot += dn;
     }
-    __syncthreads();
-    if (tid < 32) warp_scan(DCUM, 1.f, DLOG, Q, true);
-    __syncthreads();
-    for (int r = tid; r < Q; r += THREADS) {
-      const int64_t o = (int64_t)bh * S + s0 + r;
-      ddt[o] = a * DLOG[r] + (RED[r * NRED + 4] + RED[r * NRED + 5]);
-      dlog[o] = DLOG[r];
-    }
-    // 7. g <- exp(cum_last) g + sum_i exp(cum_i) C_i^T dy_i
-    const float alpha = E[Q - 1];
-    for (int idx = tid; idx < N * P; idx += THREADS) {
-      const int n = idx / P, p = idx % P;
-      float acc = 0.f;
-      for (int i = 0; i < Q; ++i) acc += E[i] * CS[i * LN + n] * DY[i * LP + p];
-      G[n * LP + p] = alpha * G[n * LP + p] + acc;
+    const float after = tot - run;  // the lanes above this one
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 4 * lane + r;
+      if (k < Q) {
+        const float dl = suf[r] + after;
+        dlog[row0 + k] = dl;
+        ddt[row0 + k] = fmaf(a, dl, DOT[k]);
+      }
     }
   }
 }
 
-template <typename T, int N, int P>
-cudaError_t launch_fwd(const void* x, const float* dt, const float* a,
-                       const void* b, const void* c, void* y, float* state,
-                       float* carries, int B, int H, int S, int Q,
-                       cudaStream_t stream) {
-  auto kernel = ssd_fwd_kernel<T, N, P>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(float) * fwd_smem_floats<N, P>(MAX_Q)));
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename TU, typename TV, bool FWD>
+cudaError_t launch_chunk_state(const void* u, const void* v, const float* dt,
+                               const float* a, float* out, float* decay,
+                               int B, int H, int S, int Q,
+                               cudaStream_t stream) {
+  auto kernel = ssd_chunk_state_kernel<TU, TV, FWD>;
+  constexpr int smem = p1_smem<TU, TV>();
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, THREADS, sizeof(float) * fwd_smem_floats<N, P>(Q),
-           stream>>>(
-      static_cast<const T*>(x), dt, a, static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), state, carries, H, S, Q);
+  kernel<<<B * H * (S / Q), P1_THREADS, smem, stream>>>(
+      static_cast<const TU*>(u), static_cast<const TV*>(v), dt, a, out, decay,
+      H, S, Q);
   return cudaGetLastError();
 }
 
-template <typename T, int N, int P>
+cudaError_t launch_state_pass(float* buf, const float* decay,
+                              const float* init, float* final_out, int B,
+                              int H, int nc, int reverse,
+                              cudaStream_t stream) {
+  ssd_state_pass_kernel<<<B * H * P2_BLOCKS, P2_THREADS, 0, stream>>>(
+      buf, decay, init, final_out, nc, reverse);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* x, const float* dt, const float* a,
+                       const void* b, const void* c, void* y, float* state,
+                       float* states, float* decay, int B, int H, int S,
+                       int Q, cudaStream_t stream) {
+  cudaError_t err = launch_chunk_state<T, T, true>(b, x, dt, a, states, decay,
+                                                   B, H, S, Q, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_state_pass(states, decay, nullptr, state, B, H, S / Q, 0,
+                          stream);
+  if (err != cudaSuccess) return err;
+  auto kernel = ssd_fwd_out_kernel<T>;
+  constexpr int smem = fwd_smem<T>();
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * H * (S / Q), FWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), dt, a, static_cast<const T*>(b),
+      static_cast<const T*>(c), states, static_cast<T*>(y), H, S, Q);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_bwd(const void* x, const float* dt, const float* a,
                        const void* b, const void* c, const float* carries,
-                       const float* dy, const float* dstate, float* dx,
-                       float* ddt, float* dlog, float* db, float* dc, int B,
-                       int H, int S, int Q, cudaStream_t stream) {
-  auto kernel = ssd_bwd_kernel<T, N, P>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(float) * bwd_smem_floats<N, P>(MAX_Q)));
+                       const float* dy, const float* dstate, float* gbuf,
+                       float* decay, float* dx, float* ddt, float* dlog,
+                       float* db, float* dc, int B, int H, int S, int Q,
+                       cudaStream_t stream) {
+  cudaError_t err = launch_chunk_state<T, float, false>(
+      c, dy, dt, a, gbuf, decay, B, H, S, Q, stream);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, THREADS, sizeof(float) * bwd_smem_floats<N, P>(Q),
-           stream>>>(
+  err = launch_state_pass(gbuf, decay, dstate, nullptr, B, H, S / Q, 1,
+                          stream);
+  if (err != cudaSuccess) return err;
+  auto kernel = ssd_bwd_out_kernel<T>;
+  constexpr int smem = bwd_smem<T>();
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * H * (S / Q), BWD_THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, a, static_cast<const T*>(b),
-      static_cast<const T*>(c), carries, dy, dstate, dx, ddt, dlog, db, dc,
-      H, S, Q);
+      static_cast<const T*>(c), carries, gbuf, dy, dx, ddt, dlog, db, dc, H,
+      S, Q);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, B and C share it).  N and P must be
-// 64.  Returns a cudaError_t (0 = launched).
+// Three CUDA launches a call each.  dtype: 0 = float32, 1 = bfloat16 (x, B
+// and C share it).  N and P must be 64, 1 <= Q <= 128, S % Q == 0.  The
+// caller allocates the scratch: `states` (B, H, S / Q, N, P) fp32 (the
+// carries when it wants them), `decay` (B, H, S / Q) fp32; backward `gbuf`
+// (B, H, S / Q, N, P) and `decay`.  Returns a cudaError_t (0 = launched).
 extern "C" int ssd_fwd(const void* x, const float* dt, const float* a,
                        const void* b, const void* c, void* y, float* state,
-                       float* carries, int B, int H, int S, int Q, int N,
-                       int P, int dtype, void* stream) {
+                       float* states, float* decay, int B, int H, int S,
+                       int Q, int N, int P, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (Q < 1 || Q > MAX_Q || S % Q != 0 || N != 64 || P != 64)
+  if (Q < 1 || Q > MAX_Q || S % Q != 0 || N != DIM || P != DIM)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_fwd<float, 64, 64>(x, dt, a, b, c, y, state, carries, B, H,
-                                     S, Q, st);
+    return launch_fwd<float>(x, dt, a, b, c, y, state, states, decay, B, H,
+                             S, Q, st);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, 64, 64>(x, dt, a, b, c, y, state,
-                                             carries, B, H, S, Q, st);
+    return launch_fwd<bf16>(x, dt, a, b, c, y, state, states, decay, B, H, S,
+                            Q, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ssd_bwd(const void* x, const float* dt, const float* a,
                        const void* b, const void* c, const float* carries,
-                       const float* dy, const float* dstate, float* dx,
-                       float* ddt, float* dlog, float* db, float* dc, int B,
-                       int H, int S, int Q, int N, int P, int dtype,
-                       void* stream) {
+                       const float* dy, const float* dstate, float* gbuf,
+                       float* decay, float* dx, float* ddt, float* dlog,
+                       float* db, float* dc, int B, int H, int S, int Q,
+                       int N, int P, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (Q < 1 || Q > MAX_Q || S % Q != 0 || N != 64 || P != 64)
+  if (Q < 1 || Q > MAX_Q || S % Q != 0 || N != DIM || P != DIM)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_bwd<float, 64, 64>(x, dt, a, b, c, carries, dy, dstate, dx,
-                                     ddt, dlog, db, dc, B, H, S, Q, st);
+    return launch_bwd<float>(x, dt, a, b, c, carries, dy, dstate, gbuf, decay,
+                             dx, ddt, dlog, db, dc, B, H, S, Q, st);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16, 64, 64>(x, dt, a, b, c, carries, dy,
-                                             dstate, dx, ddt, dlog, db, dc, B,
-                                             H, S, Q, st);
+    return launch_bwd<bf16>(x, dt, a, b, c, carries, dy, dstate, gbuf, decay,
+                            dx, ddt, dlog, db, dc, B, H, S, Q, st);
   return (int)cudaErrorInvalidValue;
 }

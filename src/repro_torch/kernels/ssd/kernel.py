@@ -16,7 +16,14 @@ layout with S a multiple of ``chunk``:
 
 Every exponent is of a difference of cumulative log-decays, <= 0, never
 factored, so nothing overflows however fast the decay.  A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.
+the plain version; a CUDA tensor launches the kernels or raises.
+
+On the card each direction is three CUDA launches (``csrc/ssd.cu``):
+chunk-local states, the state passing across chunks, and the chunk-parallel
+outputs.  The wrappers allocate their scratch: the chunk-local states,
+which the passing turns into the states entering each chunk in place (the
+carries themselves where the caller asked for them) or into the cotangents
+leaving each chunk, (B, H, nc, N, P) fp32, and exp(cum_Q) per chunk.
 """
 from __future__ import annotations
 
@@ -137,8 +144,8 @@ def ssd_bwd_plain(x, dt, a_coef, b_in, c_in, carries, dy, dstate, *,
 def _entries():
     lib = library("ssd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_fwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-    lib.ssd_bwd.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
+    lib.ssd_fwd.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+    lib.ssd_bwd.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
     lib.ssd_fwd.restype = lib.ssd_bwd.restype = ctypes.c_int
     return lib
 
@@ -178,26 +185,28 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a_coef: torch.Tensor,
             b_in: torch.Tensor, c_in: torch.Tensor, *, chunk: int = 128,
             return_carries: bool = False):
     """(y, final state[, carries]).  ``chunk`` is clamped to S, which must
-    be a multiple of it.  ``launches`` counts the CUDA launches this
-    wrapper made."""
+    be a multiple of it.  ``launches`` counts the calls that went to the
+    card, one a call (each makes three CUDA launches)."""
     if not on_card(x):
         return ssd_fwd_plain(x, dt, a_coef, b_in, c_in, chunk=chunk,
                              return_carries=return_carries)
     b, h, s, p = x.shape
     chunk = min(chunk, s)
     _check(x, dt, a_coef, b_in, c_in, chunk)
-    n = b_in.shape[-1]
+    n, nc = b_in.shape[-1], s // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
-    carries = (torch.empty((b, h, s // chunk, n, p), dtype=torch.float32,
-                           device=x.device) if return_carries else None)
+    state = torch.empty((b, h, n, p), **f32)
+    # the chunk-local states, turned in place into the carries
+    states = torch.empty((b, h, nc, n, p), **f32)
+    decay = torch.empty((b, h, nc), **f32)
     check(_entries().ssd_fwd(
         x.data_ptr(), dt.data_ptr(), a_coef.data_ptr(), b_in.data_ptr(),
-        c_in.data_ptr(), y.data_ptr(), state.data_ptr(),
-        carries.data_ptr() if return_carries else None, b, h, s, chunk, n,
-        p, DTYPE_CODES[x.dtype], stream_of(x)), "ssd_fwd")
+        c_in.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
+        decay.data_ptr(), b, h, s, chunk, n, p, DTYPE_CODES[x.dtype],
+        stream_of(x)), "ssd_fwd")
     ssd_fwd.launches += 1
-    return (y, state, carries) if return_carries else (y, state)
+    return (y, state, states) if return_carries else (y, state)
 
 
 ssd_fwd.launches = 0
@@ -206,8 +215,8 @@ ssd_fwd.launches = 0
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_coef: torch.Tensor,
             b_in: torch.Tensor, c_in: torch.Tensor, carries: torch.Tensor,
             dy: torch.Tensor, dstate: torch.Tensor, *, chunk: int):
-    """fp32 (dx, ddt, dlog, db_h, dc_h).  ``launches`` counts the CUDA
-    launches this wrapper made."""
+    """fp32 (dx, ddt, dlog, db_h, dc_h).  ``launches`` counts the calls
+    that went to the card, one a call (each makes three CUDA launches)."""
     if not on_card(x):
         return ssd_bwd_plain(x, dt, a_coef, b_in, c_in, carries, dy, dstate,
                              chunk=chunk)
@@ -222,10 +231,15 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_coef: torch.Tensor,
     dx = torch.empty((b, h, s, p), **f32)
     ddt, dlog = (torch.empty((b, h, s), **f32) for _ in range(2))
     db_h, dc_h = (torch.empty((b, h, s, n), **f32) for _ in range(2))
+    # the chunk-local cotangents, turned in place into those of the states
+    # leaving each chunk
+    gbuf = torch.empty((b, h, s // chunk, n, p), **f32)
+    decay = torch.empty((b, h, s // chunk), **f32)
     check(_entries().ssd_bwd(
         x.data_ptr(), dt.data_ptr(), a_coef.data_ptr(), b_in.data_ptr(),
         c_in.data_ptr(), carries.data_ptr(), dy.data_ptr(),
-        dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dlog.data_ptr(),
+        dstate.data_ptr(), gbuf.data_ptr(), decay.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dlog.data_ptr(),
         db_h.data_ptr(), dc_h.data_ptr(), b, h, s, chunk, n, p,
         DTYPE_CODES[x.dtype], stream_of(x)), "ssd_bwd")
     ssd_bwd.launches += 1
