@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from this
 checkout, reads the registers, spills and tensor-core (HMMA) instructions
-of the flash-attention kernels from ``-Xptxas -v`` and their SASS, holds
+of the kernels redesigned for the tensor cores (flash attention, the SSD
+and WKV-6 passes) from ``-Xptxas -v`` and their SASS, holds
 each kernel against its plain PyTorch version at every shape its path
 gives it, then drives the port's paths at full width with random
 weights from a seed:
@@ -231,8 +232,8 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 def tc_bound(nbytes: float, flops: float) -> tuple:
     """:func:`bound` of fp32 work that runs on the tensor cores as three
-    TF32 products (error-compensated TF32: the flash-attention and SSD
-    kernels)."""
+    TF32 products (error-compensated TF32: the flash-attention, SSD and
+    WKV-6 kernels)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = 3 * flops / TF32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -293,6 +294,12 @@ FA_TENSOR_CORE_KERNELS = {"flash_attention_fwd": ("flash_fwd_kernel",),
 SSD_TENSOR_CORE_KERNELS = {"ssd": ("ssd_chunk_state_kernel",
                                    "ssd_fwd_out_kernel",
                                    "ssd_bwd_out_kernel")}
+# the same passes of the WKV-6 kernels, each in three dtype instances (r, k,
+# v / log_w: template argument 0, 1, 2)
+WKV_TENSOR_CORE_KERNELS = {"wkv6": ("wkv6_chunk_state_kernel",
+                                    "wkv6_fwd_out_kernel",
+                                    "wkv6_bwd_out_kernel")}
+WKV_DTYPES = ("f32/f32", "bf16/f32", "bf16/bf16")
 
 
 def _sass_functions(lib: Path) -> dict:
@@ -315,7 +322,13 @@ def _sass_functions(lib: Path) -> dict:
 def _instance(mangled: str, kernel: str) -> str:
     """``kernel<f32|bf16, D>`` from a mangled template instance name; the
     SSD kernels ``kernel<f32|bf16>``, the chunk-state pass with its
-    direction."""
+    direction; the WKV-6 kernels ``kernel<r/log_w dtypes>`` (and the
+    direction)."""
+    if kernel.startswith("wkv6_"):
+        dt = WKV_DTYPES[int(re.search(r"ILi(\d)E", mangled).group(1))]
+        if kernel == "wkv6_chunk_state_kernel":
+            return f"{kernel}<{dt},{'fwd' if 'Lb1E' in mangled else 'bwd'}>"
+        return f"{kernel}<{dt}>"
     t = "bf16" if "bfloat16" in mangled else "f32"
     if kernel.startswith("ssd_"):
         if kernel == "ssd_chunk_state_kernel":
@@ -345,9 +358,10 @@ def _tensor_core_instances(build: dict, table: dict) -> dict:
 
 def phase_fa_design(build: dict) -> dict:
     """Each instance of the kernels redesigned for the tensor cores (flash
-    attention, and the SSD passes): the registers and spills ``-Xptxas -v``
-    reported and the tensor-core (HMMA) instructions in its SASS.  Fails if
-    one has none, or if its SASS cannot be read."""
+    attention, and the SSD and WKV-6 passes that run products): the
+    registers and spills ``-Xptxas -v`` reported and the tensor-core (HMMA)
+    instructions in its SASS.  Fails if one has none, or if its SASS cannot
+    be read."""
     found = _tensor_core_instances(build, FA_TENSOR_CORE_KERNELS)
     want = {f"{k}<{t},{d}>" for ks in FA_TENSOR_CORE_KERNELS.values()
             for k in ks for t in ("f32", "bf16") for d in (64, 128)}
@@ -360,9 +374,16 @@ def phase_fa_design(build: dict) -> dict:
         for t in ("f32", "bf16")}
     check(set(ssd) == want, f"ssd kernel instances {sorted(ssd)} != "
                             f"{sorted(want)}")
-    for name, v in {**found, **ssd}.items():
+    wkv = _tensor_core_instances(build, WKV_TENSOR_CORE_KERNELS)
+    want = {f"wkv6_chunk_state_kernel<{t},{d}>" for t in WKV_DTYPES
+            for d in ("fwd", "bwd")} | {
+        f"{k}<{t}>" for k in ("wkv6_fwd_out_kernel", "wkv6_bwd_out_kernel")
+        for t in WKV_DTYPES}
+    check(set(wkv) == want, f"wkv6 kernel instances {sorted(wkv)} != "
+                            f"{sorted(want)}")
+    for name, v in {**found, **ssd, **wkv}.items():
         check(v["hmma"] > 0, f"{name}: no tensor-core instruction in SASS")
-    emit("fa_design", kernels=found, ssd_kernels=ssd)
+    emit("fa_design", kernels=found, ssd_kernels=ssd, wkv6_kernels=wkv)
     return found
 
 
@@ -1615,7 +1636,7 @@ def phase_wkv6_fwd(prefills, train_shapes) -> tuple:
                       ("train_8x1024", RWKV_B, S_TRAIN)):
         r, k, v, lw, u = _wkv_inputs(b, s, torch.float32, 60)
         nbytes, ops = wkv6_fwd_work(b, s, RWKV_CHUNK, 4)
-        t_bound, by = bound(nbytes, ops, torch.float32)
+        t_bound, by = tc_bound(nbytes, ops)
         timing[key] = {
             "max_abs_err": (wkv6_fwd(r, k, v, lw, u, chunk=RWKV_CHUNK)[0]
                             - wkv6_fwd_plain(r, k, v, lw, u,
@@ -1627,7 +1648,8 @@ def phase_wkv6_fwd(prefills, train_shapes) -> tuple:
                     plain_queued=False),
             "library_note": "no one PyTorch call computes WKV-6",
             "bytes": nbytes, "operations": ops, "bound_ms": t_bound,
-            "bound_by": by}
+            "bound_by": by,
+            "cuda_core_bound_ms": bound(nbytes, ops, torch.float32)[0]}
         del r, k, v, lw
     torch.cuda.empty_cache()
     emit("wkv6_fwd", rel_err=errs, timing=timing,
@@ -1683,7 +1705,8 @@ def check_wkv6_bwd(r, k, v, lw, u, chunk, what, rtol=WKV_RTOL) -> dict:
 def phase_wkv6_bwd(train_shapes) -> tuple:
     """Holds the backward kernel against the plain reverse scan and against
     autograd through the plain forward at every (batch, S) of the training
-    plan, and at log_w near -54.6; times it at the full-length batch."""
+    plan, and at log_w near -54.6; checks two runs at the full-length batch
+    bit for bit and times it there."""
     from repro_torch.kernels.rwkv6 import (wkv6_bwd, wkv6_bwd_plain,
                                            wkv6_fwd_plain)
     errs, checked = {}, set()
@@ -1705,8 +1728,15 @@ def phase_wkv6_bwd(train_shapes) -> tuple:
     _, _, carries = wkv6_fwd_plain(r, k, v, lw, u, chunk=RWKV_CHUNK,
                                    return_carries=True)
     args = (r, k, v, lw, u, carries, dy, dstate)
+    # no atomics, du summed over the chunks in a fixed order: two backward
+    # calls give the same bits
+    first = wkv6_bwd(*args, chunk=RWKV_CHUNK)
+    second = wkv6_bwd(*args, chunk=RWKV_CHUNK)
+    identical = all(torch.equal(a, e) for a, e in zip(first, second))
+    check(identical, "two wkv6_bwd runs at 8 x 1024 differ")
+    del first, second
     nbytes, ops = wkv6_bwd_work(b, s, RWKV_CHUNK)
-    t_bound, by = bound(nbytes, ops, torch.float32)
+    t_bound, by = tc_bound(nbytes, ops)
     timing = {"train_8x1024": {
         "max_abs_err": max(
             (a - e).abs().max().item() for a, e in zip(
@@ -1717,10 +1747,12 @@ def phase_wkv6_bwd(train_shapes) -> tuple:
                 plain_queued=False),
         "library_note": "no one PyTorch call computes WKV-6's backward",
         "bytes": nbytes, "operations": ops, "bound_ms": t_bound,
-        "bound_by": by}}
+        "bound_by": by,
+        "cuda_core_bound_ms": bound(nbytes, ops, torch.float32)[0]}}
     del args, r, k, v, lw, dy, dstate, carries
     torch.cuda.empty_cache()
-    emit("wkv6_bwd", rel_err=errs, timing=timing)
+    emit("wkv6_bwd", rel_err=errs, timing=timing,
+         bitwise_identical_reruns=identical)
     return timing, checked
 
 

@@ -1,8 +1,9 @@
 // Device helpers shared by the Hopper (sm_90a) kernels of this directory:
 // asynchronous copies, error-compensated TF32 and bf16 products on
 // mma.sync, and the scalar odds and ends around them.  Included by
-// flash_attention_fwd.cu, flash_attention_bwd.cu and ssd.cu; each builds
-// into a library of its own, so everything here has internal linkage.
+// flash_attention_fwd.cu, flash_attention_bwd.cu, ssd.cu and wkv6.cu; each
+// builds into a library of its own, so everything here has internal
+// linkage.
 //
 // Error-compensated TF32: an fp32 operand x is split into hi = tf32(x)
 // (cvt.rna) and lo = tf32(x - hi), and a product is a_lo b_hi + a_hi b_lo
@@ -41,6 +42,18 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// a where c, else b, by selp in registers: the compiler folds a plain
+// select between two elements of a register array into an index into the
+// array, which puts the whole array in local memory
+__device__ __forceinline__ float select_reg(bool c, float a, float b) {
+  float r;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %3, 0;\n\t"
+      "selp.f32 %0, %1, %2, p;\n\t}\n"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"((int)c));
+  return r;
+}
 
 // ---------------------------------------------------------------------------
 // copies

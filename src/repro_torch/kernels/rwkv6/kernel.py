@@ -13,10 +13,20 @@ layout with S a multiple of ``chunk``:
   (B, H, S, D) and du_part (B, H, D), which the caller sums over B.
 
 Within a chunk the pairwise decay ``exp(cum_in[i] - cum[j])`` (j < i) is
-taken from the difference of the cumulative log-decays, never factored:
-the exponent is <= 0, so nothing overflows however fast the decay.  A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
+taken from differences of the cumulative log-decays, each <= 0 (the
+kernels factor it only across 16-row tiles, through the cum of the row
+before the later tile), so nothing overflows however fast the decay.  A
+CPU tensor takes the plain version; a CUDA tensor launches the kernels or
 raises.
+
+On the card each direction is three CUDA launches (``csrc/wkv6.cu``):
+chunk-local states, the state passing across chunks, and the
+chunk-parallel outputs.  The wrappers allocate their scratch: the
+chunk-local states, which the passing turns into the states entering each
+chunk in place (the carries themselves where the caller asked for them) or
+into the cotangents leaving each chunk, (B, H, nc, D, D) fp32, exp(cum_last)
+per chunk and channel, and the backward's du per chunk, summed here over
+the chunks in a fixed order.
 """
 from __future__ import annotations
 
@@ -139,8 +149,8 @@ def wkv6_bwd_plain(r, k, v, log_w, u, carries, dy, dstate, *, chunk: int):
 def _entries():
     lib = library("wkv6")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.wkv6_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
-    lib.wkv6_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
+    lib.wkv6_fwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    lib.wkv6_bwd.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
     lib.wkv6_fwd.restype = lib.wkv6_bwd.restype = ctypes.c_int
     return lib
 
@@ -174,27 +184,29 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              log_w: torch.Tensor, u: torch.Tensor, *, chunk: int = 32,
              return_carries: bool = False):
     """(y, final state[, carries]).  ``chunk`` is clamped to S, which must
-    be a multiple of it.  ``launches`` counts the CUDA launches this
-    wrapper made."""
+    be a multiple of it.  ``launches`` counts the calls that went to the
+    card, one a call (each makes three CUDA launches)."""
     if not on_card(r):
         return wkv6_fwd_plain(r, k, v, log_w, u, chunk=chunk,
                               return_carries=return_carries)
     b, h, s, d = r.shape
     chunk = min(chunk, s)
     _check(r, k, v, log_w, u, chunk)
+    nc = s // chunk
     uf = u.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=r.device)
     y = torch.empty_like(r)
-    state = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
-    carries = (torch.empty((b, h, s // chunk, d, d), dtype=torch.float32,
-                           device=r.device) if return_carries else None)
+    state = torch.empty((b, h, d, d), **f32)
+    # the chunk-local states, turned in place into the carries
+    states = torch.empty((b, h, nc, d, d), **f32)
+    decay = torch.empty((b, h, nc, d), **f32)
     check(_entries().wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        uf.data_ptr(), y.data_ptr(), state.data_ptr(),
-        carries.data_ptr() if return_carries else None, b, h, s, chunk,
-        DTYPE_CODES[r.dtype], DTYPE_CODES[log_w.dtype], stream_of(r)),
-        "wkv6_fwd")
+        uf.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
+        decay.data_ptr(), b, h, s, chunk, DTYPE_CODES[r.dtype],
+        DTYPE_CODES[log_w.dtype], stream_of(r)), "wkv6_fwd")
     wkv6_fwd.launches += 1
-    return (y, state, carries) if return_carries else (y, state)
+    return (y, state, states) if return_carries else (y, state)
 
 
 wkv6_fwd.launches = 0
@@ -203,8 +215,8 @@ wkv6_fwd.launches = 0
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              log_w: torch.Tensor, u: torch.Tensor, carries: torch.Tensor,
              dy: torch.Tensor, dstate: torch.Tensor, *, chunk: int):
-    """fp32 (dr, dk, dv, d_log_w, du_part).  ``launches`` counts the CUDA
-    launches this wrapper made."""
+    """fp32 (dr, dk, dv, d_log_w, du_part).  ``launches`` counts the calls
+    that went to the card, one a call (each makes three CUDA launches)."""
     if not on_card(r):
         return wkv6_bwd_plain(r, k, v, log_w, u, carries, dy, dstate,
                               chunk=chunk)
@@ -214,18 +226,24 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_f32("carries", carries, (b, h, s // chunk, d, d), dev)
     check_f32("dy", dy, (b, h, s, d), dev)
     check_f32("dstate", dstate, (b, h, d, d), dev)
+    nc = s // chunk
     uf = u.float().contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     dr, dk, dv, dlw = (torch.empty((b, h, s, d), **f32) for _ in range(4))
-    du = torch.empty((b, h, d), **f32)
+    # the chunk-local cotangents, turned in place into those of the states
+    # leaving each chunk
+    gbuf = torch.empty((b, h, nc, d, d), **f32)
+    decay = torch.empty((b, h, nc, d), **f32)
+    du_chunks = torch.empty((b, h, nc, d), **f32)
     check(_entries().wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
         uf.data_ptr(), carries.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
-        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
-        du.data_ptr(), b, h, s, chunk, DTYPE_CODES[r.dtype],
-        DTYPE_CODES[log_w.dtype], stream_of(r)), "wkv6_bwd")
+        gbuf.data_ptr(), decay.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dlw.data_ptr(), du_chunks.data_ptr(), b, h, s, chunk,
+        DTYPE_CODES[r.dtype], DTYPE_CODES[log_w.dtype], stream_of(r)),
+        "wkv6_bwd")
     wkv6_bwd.launches += 1
-    return dr, dk, dv, dlw, du
+    return dr, dk, dv, dlw, du_chunks.sum(dim=2)
 
 
 wkv6_bwd.launches = 0
