@@ -6,7 +6,10 @@
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from this
 checkout, reads the registers, spills and tensor-core (HMMA) instructions
 of the kernels redesigned for the tensor cores (flash attention, the SSD
-and WKV-6 passes) from ``-Xptxas -v`` and their SASS, holds
+and WKV-6 passes) from ``-Xptxas -v`` and their SASS, and the registers,
+stack and spills of every flash-decode instance (none may spill where a
+serving path runs it), checks that each decode call at the fused steps'
+shapes is one kernel in a trace and gives the same bits twice, holds
 each kernel against its plain PyTorch version at every shape its path
 gives it, then drives the port's paths at full width with random
 weights from a seed:
@@ -387,6 +390,92 @@ def phase_fa_design(build: dict) -> dict:
     return found
 
 
+# the flash-decode kernel's instances: decode_kernel<T, D, G, PAGED>
+DECODE_INSTANCE = re.compile(
+    r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E")
+PTXAS_USE = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads.*Used (\d+) registers")
+# the instances the serving paths run: fp32, G 1, gpt2's D 64 and zamba2's
+# D 80, dense and paged
+DECODE_PATH_INSTANCES = {f"decode_kernel<f32,{d},1,{kind}>" for d in (64, 80)
+                         for kind in ("dense", "paged")}
+
+
+def phase_decode_design(build: dict) -> dict:
+    """Registers, stack frame and spills of every flash-decode instance from
+    ``-Xptxas -v``; fails on a stack frame or a spill in an instance a
+    serving path runs, or if the build's ptxas lines were not captured."""
+    info = build["ptxas"].get("flash_decode", {})
+    found = {}
+    for mangled, line in info.items():
+        inst, use = DECODE_INSTANCE.search(mangled), PTXAS_USE.search(line)
+        if inst is None:
+            continue
+        t, d, g, paged = inst.groups()
+        name = (f"decode_kernel<{'f32' if t == 'f' else 'bf16'},{d},{g},"
+                f"{'paged' if paged == '1' else 'dense'}>")
+        check(use is not None, f"{name}: no ptxas usage line in {line!r}")
+        stack, spill_st, spill_ld, regs = map(int, use.groups())
+        found[name] = {"registers": regs, "stack_bytes": stack,
+                       "spill_store_bytes": spill_st,
+                       "spill_load_bytes": spill_ld}
+    check(len(found) == 2 * 3 * 6 * 2, f"{len(found)} flash-decode instances "
+          f"in the build log, want 72 (a prebuilt library logs none: remove "
+          f"build/repro_torch_kernels)")
+    for name in DECODE_PATH_INSTANCES:
+        v = found[name]
+        check(v["stack_bytes"] == 0 and v["spill_store_bytes"] == 0
+              and v["spill_load_bytes"] == 0, f"{name} spills: {v}")
+    emit("decode_design", path_instances=sorted(DECODE_PATH_INSTANCES),
+         kernels=found)
+    return found
+
+
+def kernels_in_trace(fn, calls: int, attempts: int = 3) -> list:
+    """Names of the device kernels ``calls`` calls of ``fn`` ran, from a
+    CUDA-only ``torch.profiler`` trace: the kernels between two spin
+    kernels (``torch.cuda._sleep``) launched around the calls, in start
+    order, so that records of earlier kernels a trace may carry do not
+    count.  A trace without both spin kernels is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e.start_ns(), e.name())
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == cuda)
+        marks = [i for i, (_, name) in enumerate(events)
+                 if "spin_kernel" in name]
+        if len(marks) >= 2:
+            return [name for _, name in events[marks[-2] + 1:marks[-1]]]
+    raise RuntimeError(f"check failed: no trace of {attempts} held both "
+                       f"spin kernels around the calls")
+
+
+def check_one_launch(fn, what: str, calls: int = 10) -> str:
+    """Each wrapper call is one kernel, ``decode_kernel``, in a trace."""
+    names = kernels_in_trace(fn, calls)
+    check(len(names) == calls and all("decode_kernel" in n for n in names),
+          f"{what}: {calls} calls ran {names}")
+    return names[0]
+
+
+def check_rerun(fn, what: str) -> bool:
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"{what}: two runs differ")
+    return True
+
+
 def _attn_inputs(b, s, dtype, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(b * H, s, D, device="cuda", generator=gen).to(dtype)
@@ -516,14 +605,14 @@ def time_decode(q, kc, vc, lengths, what: str) -> dict:
 
 
 def phase_flash_decode(main_lengths, cache_len: int) -> tuple:
-    """Checks the kernel on an edge-case cache of 1024 (G 1 and 4) and at
-    the serving path's shapes: the fused step's 8 slots at
-    ``main_lengths`` and a prompt's replay, one slot, both over
+    """Checks the kernel on an edge-case cache of 1024 (G 1, 3 and 4, and
+    G 6 at head dim 128) and at the serving path's shapes: the fused step's
+    8 slots at ``main_lengths`` and a prompt's replay, one slot, both over
     ``cache_len``; the same at zamba2's head dim 80 (32 heads, G 1), with
     a ragged set of lengths off multiples of 32 besides.  Times it at 1024,
     on the fused step, and on zamba2's fused step."""
     lengths = [0, 1, 127, 128, 1000, 1024, 600, 5]
-    cases = [(8, 1024, g, lengths) for g in (1, 4)] + [
+    cases = [(8, 1024, g, lengths) for g in (1, 3, 4)] + [
         (8, cache_len, 1, main_lengths), (1, cache_len, 1, [cache_len - 149])]
     zamba = [(8, cache_len, main_lengths), (1, cache_len, [cache_len - 149]),
              (8, cache_len, [0, 1, 31, 129, cache_len, 300, 545, 77])]
@@ -533,6 +622,10 @@ def phase_flash_decode(main_lengths, cache_len: int) -> tuple:
             key = f"{str(dtype)[6:]}_{b}x{s}_g{g}"
             errs[key] = check_decode(*_decode_inputs(b, s, g, dtype, ln, i),
                                      key)
+        # G 6 at D 128 (qwen2-1.5b's grouping)
+        key = f"{str(dtype)[6:]}_8x1024_g6_d128"
+        errs[key] = check_decode(*_decode_inputs(8, 1024, 6, dtype, lengths,
+                                                 10, H, 128), key)
         for i, (b, s, ln) in enumerate(zamba):
             key = f"{str(dtype)[6:]}_{b}x{s}_d80_{i}"
             errs[key] = check_decode(*_decode_inputs(
@@ -745,22 +838,24 @@ def paged_main_lengths(main_lengths) -> tuple:
 
 def phase_flash_decode_paged(main_lengths, cache_len: int) -> tuple:
     """Holds the paged kernel against its plain version in fp32 and bf16,
-    page sizes 16 and 64, G 1 and 4, over lengths 0, 1, one page, one past
-    a page and the full table, with -1 inside rows (past the length and
-    inside it) and at their tails, and at the paged engine's shape: 8
-    slots, 9 pages of 64, a pool of 48.  Times the engine's shape."""
+    page sizes 16 and 64, G 1, 3 and 4 (and G 6 at head dim 128), over
+    lengths 0, 1, one page, one past a page and the full table, with -1
+    inside rows (past the length and inside it) and at their tails, and at
+    the paged engine's shape: 8 slots, 9 pages of 64, a pool of 48.  Times
+    the engine's shape."""
     errs, checked = {}, set()
     for dtype in (torch.float32, torch.bfloat16):
         for ps in (16, 64):
             mp = -(-cache_len // ps)
             lengths = [0, 1, ps, ps + 1, mp * ps, 2 * ps + 5, 1, 2 * ps]
-            for g in (1, 4):
-                key = f"{str(dtype)[6:]}_ps{ps}_g{g}"
+            for g, d in ((1, D), (3, D), (4, D), (6, 128)):
+                key = f"{str(dtype)[6:]}_ps{ps}_g{g}" + (
+                    f"_d{d}" if d != D else "")
                 # row 5: a hole inside its length; row 6: no page at all;
                 # row 7: a hole past its length, then an owned page
                 q, k, v, table, lens = _paged_inputs(
                     lengths, ps, mp, 64, g, dtype, ps + g,
-                    holes=[(5, 1), (6, 0)])
+                    holes=[(5, 1), (6, 0)], d=d)
                 table[7, 3] = table[4, 0]  # shared page id past row 7's end
                 errs[key] = check_paged(q, k, v, table, lens, key)
                 if dtype == torch.float32 and g == 1:
@@ -798,6 +893,34 @@ def phase_flash_decode_paged(main_lengths, cache_len: int) -> tuple:
     emit("flash_decode_paged_fwd", max_err=errs, timing=timing,
          main_lengths=lengths)
     return timing, checked
+
+
+def phase_decode_launches(main_lengths, cache_len: int) -> dict:
+    """At the gpt2 and zamba2 fused steps' shapes, dense and paged: two
+    calls of each decode kernel give the same bits, and each call is one
+    kernel in a ``torch.profiler`` trace.  Runs before any long trace: a
+    trace of a few kernels taken after one of a whole engine run came back
+    empty."""
+    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_paged_fwd)
+    lengths, free = paged_main_lengths(main_lengths)
+    mp = -(-cache_len // PAGE_SIZE)
+    out = {}
+    for key, h, d in (("float32_main", H, D),
+                      ("float32_zamba_main", ZAMBA_H, ZAMBA_D)):
+        for kind, call in (
+                ("dense", functools.partial(flash_decode_fwd, *_decode_inputs(
+                    8, cache_len, 1, torch.float32, main_lengths, 4, h, d))),
+                ("paged", functools.partial(
+                    flash_decode_paged_fwd, *_paged_inputs(
+                        lengths, PAGE_SIZE, mp, N_PAGES, 1, torch.float32, 7,
+                        holes=[(i, 0) for i in free], h=h, d=d)))):
+            what = f"{kind} {key}"
+            out[f"{kind}_{key}"] = {
+                "bitwise_identical_reruns": check_rerun(call, what),
+                "trace_kernel": check_one_launch(call, what)}
+    emit("decode_launches", **out)
+    return out
 
 
 def phase_engine_paged(dev: dict, engine: dict, fa_checked: set,
@@ -2786,7 +2909,10 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
 
 def main() -> int:
     dev = phase_device()
-    phase_fa_design(phase_build())
+    build = phase_build()
+    phase_fa_design(build)
+    phase_decode_design(build)
+    del build
     fa_timing, fa_checked = phase_flash_attention()
     from repro_torch.launch.serve import make_requests
     from repro_torch.configs import get_arch
@@ -2794,6 +2920,7 @@ def main() -> int:
     # slot cache of prompt_len + gen_tokens that _serve gives the engine
     main_lengths = [len(r.tokens) + r.max_tokens // 2 for r in make_requests(
         get_arch("gpt2-117m"), 8, PROMPT_LEN, GEN, seed=SEED)]
+    phase_decode_launches(main_lengths, PROMPT_LEN + GEN)
     fd_timing, fd_checked = phase_flash_decode(main_lengths, PROMPT_LEN + GEN)
     engine = phase_engine(dev, fa_checked, fd_checked)
     phase_parity(engine)

@@ -1,5 +1,6 @@
 // Split-KV flash-decode for Hopper (sm_90a), dense and paged, plain C
-// interface.
+// interface: one launch a call, the split-KV merge inside a thread-block
+// cluster.
 //
 // Replaces two TPU kernels of src/repro/kernels/flash_decode/kernel.py:
 //   * `flash_decode_fwd` (body `_decode_kernel`, line 41; pallas_call at
@@ -15,415 +16,664 @@
 // nothing valid yields (0, -1e30, 0).
 //
 // What bounds them on the H100: bytes.  Each cache element read feeds G
-// multiply-adds, so with G = 1 (gpt2) a kernel does ~0.5 operation per
-// byte (fp32) and the least time is 2 * sum(lengths) * KV * D * elt bytes
-// over 3.35 TB/s.  The design therefore reads each valid cache row once,
-// reads nothing past lengths[b], and keeps enough blocks in flight to use
-// the memory: the TPU grids (B, KV, kv_blocks) and (B, KV, max_pages) ran
-// their last axis in order on one core, but B * KV is only 96 for 8 gpt2
-// slots, under the 132 SMs.  So the logical cache is split into chunks of
-// CHUNK keys, one block per (chunk, kv head, slot); each block writes its
-// own (o, m, l) partial, and a second small kernel merges the chunks with
-// the rule of src/repro/kernels/flash_decode/ops.py:60-61
-// (gm = max m; o = sum o*exp(m-gm); l = sum l*exp(m-gm)).  A chunk wholly
-// past lengths[b] returns before it loads anything, and the merge never
-// reads it.  Inside a block each warp takes every fourth key, a lane holds
-// ceil(D / 32) elements at stride 32 (D = 64, 80 or 128; at 80 the third
-// is guarded off on lanes 16-31; each load instruction of a warp reads one
-// contiguous row segment), dot products reduce through warp shuffles,
-// softmax runs per chunk in shared memory, and the four warps' P.V sums
-// meet in shared memory.
-//
-// The paged kernel differs only in where key j of a chunk lives: the block
-// stages the page ids its chunk spans in shared memory once (a chunk of
-// 128 keys spans at most 128 / page_size + 1 pages), then addresses key j
-// through them.  Neither the k nor the v row of an unowned key is loaded:
-// inside the slot's length it counts as a zero key and value, as in the
-// plain version (the reference's oracle, `gather_pages`, zeroes unowned
-// pages); the TPU kernel skips such a page instead.  The two agree on
-// every row whose unowned entries lie at or past its length, which is
-// every live row of the engine; its inactive rows (length 1, no page)
-// give (0, 0, 1) here and (0, -1e30, 0) on the TPU, and nobody reads
-// them.  A table entry past the slot's length is never read.
+// multiply-adds, so with G = 1 (gpt2, zamba2) a kernel does ~0.5 operation
+// per byte and the least time is 2 * sum(lengths) * KV * D * elt bytes over
+// 3.35 TB/s: a few microseconds on the serving paths, where fixed costs
+// (launches, latency, a second pass) set the time.  So:
+//   * One launch.  A cluster of C blocks (C <= 8, the portable maximum)
+//     serves one (slot, kv head) cell; block r takes keys [r R, (r+1) R) of
+//     the slot's valid ones, R = ceil(len / C) rounded up to the key tile,
+//     so a short slot leaves no block walking dead keys.  C is the most
+//     that keeps the grid in one wave of at most 4 blocks an SM.  Each
+//     block keeps its partial (o, m, l) in shared memory (a block with no
+//     keys keeps (0, -1e30, 0)) and stores slice s of it through
+//     distributed shared memory into block s; after one cluster barrier
+//     each block merges its slice of G x D in rank order with the rule of
+//     src/repro/kernels/flash_decode/ops.py:60-61 (gm = max m; o = sum o
+//     exp(m - gm); l = sum l exp(m - gm)) and writes it.  No global
+//     scratch, no atomics: two runs give the same bits.
+//   * K and V stream together.  A block walks its range in tiles of TILE
+//     keys through a ring of cp.async stages, each stage holding the
+//     tile's K rows and V rows, both requested at once; every global load
+//     is 16 bytes (4 fp32 or 8 bf16 elements; D x elt is a multiple of 16
+//     for D = 64, 80, 128), and a row past the range or unowned is
+//     zero-filled without being read.
+//   * The score work is cheap to reduce.  A key belongs to LPK lanes (4, or
+//     8 at D = 128) that each hold a slice of its row and of q, so its dot
+//     product reduces in log2(LPK) shuffles; the same lanes fold that key
+//     into a running (m, l, o slice) of their own (the online softmax over
+//     tiles, every exponent a difference <= 0).  The 32 / LPK key groups of
+//     a warp merge once at the end by shuffles, the warps in shared memory,
+//     then the cluster.  Where G > 1 the warps also split the query rows.
+//   * The paged kernel addresses each key once: the block stages the page
+//     ids its range spans (none at or past ceil(len / ps)), and one tile
+//     ahead of the loads one thread a key turns the key's page and offset
+//     (a multiply-high and shift, not a division) into k and v row offsets
+//     stored beside the tile, so the K and V loads issue from a ready
+//     address.  An unowned key inside the slot's length counts as a zero
+//     key and value, as in the plain version (the reference's oracle,
+//     `gather_pages`, zeroes unowned pages); the TPU kernel skips such a
+//     page instead.  The two agree on every row whose unowned entries lie
+//     at or past its length, which is every live row of the engine; its
+//     inactive rows (length 1, no page) give (0, 0, 1) here and
+//     (0, -1e30, 0) on the TPU, and nobody reads them.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
 #include <cmath>
-#include <type_traits>
+
+#include "sm90_mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CHUNK = 128;   // keys per block
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int UNROLL = 4;    // keys in flight per warp
+constexpr int TILE = 32;          // keys a pipeline stage holds
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 constexpr float NEG_INF = -1e30f;
 
-template <int N>
-using Int = std::integral_constant<int, N>;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__host__ __device__ constexpr int gcd(int a, int b) {
+  return b == 0 ? a : gcd(b, a % b);
+}
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// Key j of a chunk in a dense (B, S, KV, D) cache: k and v point at the
-// chunk's first row of this (slot, kv head).
-template <typename T>
-struct DenseRows {
-  const T* k;
-  const T* v;
-  int64_t k_ss, v_ss;
-  __device__ bool owned(int) const { return true; }
-  __device__ const T* key(int j) const { return k + j * k_ss; }
-  __device__ const T* value(int j) const { return v + j * v_ss; }
-};
-
-// Key j of a chunk in a paged pool: k and v point at this kv head's
-// column of page 0; pid holds the page ids of the chunk's pages, the first
-// of them logical page page0.
-template <typename T>
-struct PagedRows {
-  const T* k;
-  const T* v;
-  const int* pid;
-  int col0, page0, ps;
-  int64_t k_sp, k_so, v_sp, v_so;
-  __device__ int page(int j) const { return pid[(col0 + j) / ps - page0]; }
-  __device__ bool owned(int j) const { return page(j) >= 0; }
-  __device__ const T* key(int j) const {
-    return k + page(j) * k_sp + ((col0 + j) % ps) * k_so;
-  }
-  __device__ const T* value(int j) const {
-    return v + page(j) * v_sp + ((col0 + j) % ps) * v_so;
+// The layout of one instance: element type T, head dim D, group size G.
+template <typename T, int D, int G>
+struct Shape {
+  static constexpr int VEC = 16 / sizeof(T);   // elements a 16-byte chunk
+  static constexpr int NC = D / VEC;           // chunks a row
+  static constexpr int LPK = D == 128 ? 8 : 4; // lanes a key
+  static constexpr int CPL = ceil_div(NC, LPK);  // chunks a lane (at most)
+  static constexpr bool EVEN = NC % LPK == 0;  // every lane CPL chunks
+  static constexpr int E = CPL * VEC;          // elements a lane
+  static constexpr int KPW = 32 / LPK;         // key groups a warp
+  static constexpr int WG = gcd(G, WARPS);     // warps across query rows
+  static constexpr int RPW = G / WG;           // query rows a warp
+  static constexpr int WK = WARPS / WG;        // warps across keys
+  static constexpr int KPG = TILE / (WK * KPW);  // keys a key group a tile
+  // A tile's rows in shared memory, RSC chunks apart.  A quarter warp's
+  // 16-byte loads read 8 chunks: LPK = 8 reads 8 chunks of one row; LPK =
+  // 4 reads 4 of each of two neighbouring rows, which XOR chunk c of an
+  // odd row with 4 where NC % 8 == 0 and otherwise start RSC = 4 (mod 8)
+  // chunks apart (D = 80), so the 8 fall in distinct banks.
+  static constexpr bool SWIZZLE = LPK == 4 && NC % 8 == 0;
+  static constexpr int RSC =
+      (LPK == 8 || SWIZZLE) ? NC : NC + ((4 - NC % 8) + 8) % 8;
+  static constexpr int TILE_CHUNKS = TILE * RSC;
+  static constexpr int STAGE_BYTES = 2 * TILE_CHUNKS * 16;  // K and V
+  static constexpr int STAGES = STAGE_BYTES <= 16384 ? 3 : 2;
+  static constexpr int NOFF = STAGES + 1;      // paged: row-offset slots
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int OFF_BYTES = NOFF * TILE * 2 * 8;
+  // after the key loop the ring holds the warps' partials and the block's
+  static constexpr int PART_FLOATS = (WK + (WK > 1)) * G * (D + 2);
+  static_assert(NC * VEC == D && KPG >= 1 && KPG * WK * KPW == TILE,
+                "layout");
+  static_assert(PART_FLOATS * 4 <= RING_BYTES, "partials fit the ring");
+  __device__ static int phys(int j, int c) {
+    return j * RSC + (SWIZZLE ? c ^ ((j & 1) << 2) : c);
   }
 };
 
-// One block's chunk of n (>= 1) keys of one (slot, kv head) `cell`:
-// scores, chunk softmax, P.V, and the chunk's partial written at `part`.
-template <typename T, int D, int G, class Rows>
-__device__ __forceinline__ void split_body(const T* __restrict__ q,
-                                           const Rows& rows, int n,
-                                           int64_t cell, int64_t part,
-                                           float* __restrict__ po,
-                                           float* __restrict__ pm,
-                                           float* __restrict__ pl,
-                                           float scale) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // elements per lane, at stride 32; where D % 32 != 0 (D = 80) the last
-  // one exists only on lanes with lane + 32 (E - 1) < D, and `has` guards
-  // every load, FMA and store of it (a constant true where D % 32 == 0)
-  constexpr int E = (D + 31) / 32;
-  const auto has = [&](int e) { return D % 32 == 0 || lane + 32 * e < D; };
-  __shared__ float p_s[G][CHUNK];
-  __shared__ float red[WARPS][G][D];
-  __shared__ float m_s[G], l_s[G];
-  float qr[G][E];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      qr[g][e] = has(e) ? to_f32(q[(cell * G + g) * D + lane + 32 * e])
-                        : 0.f;
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  const int* table;  // paged: (B, max_pages) int32, -1 = unowned
+  float* o;
+  float* m;
+  float* l;
+  int s;             // keys a slot can hold: S, or max_pages * page_size
+  int kvh;
+  int max_pages, ps;           // paged
+  uint32_t ps_mul;             // paged: col / ps = umulhi(col, ps_mul) >>
+  int ps_shift;                //   ps_shift (ps > 1)
+  int max_ids;                 // paged: page ids a block stages, at most
+  // element strides: dense (slot, position, head), paged (page, offset,
+  // head)
+  int64_t k_s0, k_s1, k_sh, v_s0, v_s1, v_sh;
+  float scale;
+};
 
-  // scores: s = (q . k) * scale, one key per warp per unrolled slot;
-  // an unowned key is a zero key, not loaded
-  for (int j0 = warp; j0 < n; j0 += WARPS * UNROLL) {
-    float kr[UNROLL][E];
+template <typename T, int D, int G, bool PAGED>
+__global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
+  using S = Shape<T, D, G>;
+  constexpr int VEC = S::VEC, NC = S::NC, LPK = S::LPK, CPL = S::CPL,
+                E = S::E, RPW = S::RPW, KPG = S::KPG, STAGES = S::STAGES;
+  extern __shared__ float4 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  cluster_arrive_relaxed();  // this block runs (waited for before the merge)
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int64_t cell = (int64_t)b * a.kvh + h;  // (slot, kv head)
+
+  // this block's keys [start, end) of the slot's valid ones
+  const int len = max(0, min(a.lengths[b], a.s));
+  const int per = ceil_div(ceil_div(len, csize), TILE) * TILE;
+  const int start = min(len, rank * per);
+  const int end = min(len, start + per);
+  const int n = end - start;
+  const int nt = ceil_div(n, TILE);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gw = warp % S::WG, wk = warp / S::WG;
+  const int kg = lane / LPK, part = lane % LPK;
+
+  // q rows gw * RPW + r, this lane's chunks part + LPK i, in fp32
+  float qr[RPW][E];
+  {
+    const T* qp = static_cast<const T*>(a.q) + (cell * G + gw * RPW) * D;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + u * WARPS;
-      const bool ok = j < n && rows.owned(j);
-      const T* row = ok ? rows.key(j) : nullptr;
+    for (int r = 0; r < RPW; ++r)
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        kr[u][e] = ok && has(e) ? to_f32(row[lane + 32 * e]) : 0.f;
+      for (int i = 0; i < CPL; ++i) {
+        const int c = part + LPK * i;
+        float x[VEC];
+        if (S::EVEN || c < NC) {
+          unpack16(*reinterpret_cast<const uint4*>(qp + r * D + c * VEC), x);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) x[e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qr[r][i * VEC + e] = x[e];
+      }
+  }
+
+  float4* ring = smem;
+  int64_t* offs =
+      reinterpret_cast<int64_t*>(smem + STAGES * 2 * S::TILE_CHUNKS);
+  int* ids = reinterpret_cast<int*>(offs + S::NOFF * TILE * 2);
+  const T* kb = static_cast<const T*>(a.k) + h * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + h * a.v_sh;
+  if (!PAGED) {
+    kb += b * a.k_s0;
+    vb += b * a.v_s0;
+  }
+  int page0 = 0;
+  if (PAGED && n > 0) {
+    // the page ids of logical pages page0 .. (end - 1) / ps, all below
+    // ceil(len / ps): no table entry past the length is read
+    page0 = start / a.ps;
+    const int n_ids = (end - 1) / a.ps - page0 + 1;
+    for (int i = threadIdx.x; i < n_ids; i += THREADS)
+      ids[i] = a.table[(int64_t)b * a.max_pages + page0 + i];
+    __syncthreads();
+  }
+
+  // paged: the k and v row offsets of tile t's keys (-1: unowned or past
+  // the range), one thread a key
+  const auto stage_offsets = [&](int t) {
+    int64_t* o2 = offs + (t % S::NOFF) * TILE * 2;
+    for (int j = threadIdx.x; j < TILE; j += THREADS) {
+      const int col = start + t * TILE + j;
+      int64_t ko = -1, vo = -1;
+      if (col < end) {
+        const int page =
+            a.ps == 1 ? col : (int)(__umulhi((uint32_t)col, a.ps_mul) >>
+                                    a.ps_shift);
+        const int off = col - page * a.ps;
+        const int id = ids[page - page0];
+        if (id >= 0) {
+          ko = id * a.k_s0 + off * a.k_s1;
+          vo = id * a.v_s0 + off * a.v_s1;
+        }
+      }
+      o2[2 * j] = ko;
+      o2[2 * j + 1] = vo;
     }
+  };
+  // tile t's K and V rows into stage t % STAGES, zero-filled past the
+  // range and where unowned (nothing read)
+  const auto load = [&](int t) {
+    float4* ks = ring + (t % STAGES) * 2 * S::TILE_CHUNKS;
+    float4* vs = ks + S::TILE_CHUNKS;
+    const int64_t* o2 = offs + (t % S::NOFF) * TILE * 2;
+    for (int idx = threadIdx.x; idx < TILE * NC; idx += THREADS) {
+      const int j = idx / NC, c = idx % NC;
+      const int col = start + t * TILE + j;
+      const T* kr = kb;
+      const T* vr = vb;
+      bool ok;
+      if (PAGED) {
+        const int64_t ko = o2[2 * j];
+        ok = ko >= 0;
+        if (ok) {
+          kr = kb + ko;
+          vr = vb + o2[2 * j + 1];
+        }
+      } else {
+        ok = col < end;
+        if (ok) {
+          kr = kb + col * a.k_s1;
+          vr = vb + col * a.v_s1;
+        }
+      }
+      const int p = S::phys(j, c);
+      cp_async16(ks + p, kr + (ok ? c * VEC : 0), ok);
+      cp_async16(vs + p, vr + (ok ? c * VEC : 0), ok);
+    }
+  };
+
+  // this key group's running softmax over its keys: m, l and the lane's
+  // slice of o, for the warp's query rows
+  float m[RPW], l[RPW], acc[RPW][E];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + u * WARPS;
+  for (int r = 0; r < RPW; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  }
+
+  const auto compute = [&](int t) {
+    const float4* ks = ring + (t % STAGES) * 2 * S::TILE_CHUNKS;
+    const float4* vs = ks + S::TILE_CHUNKS;
+    const int valid = min(TILE, n - t * TILE);
+    float p[KPG][RPW];
+    // scores s = (q . k) * scale of this key group's keys
 #pragma unroll
-        for (int e = 0; e < E; ++e)
-          if (has(e)) dot += qr[g][e] * kr[u][e];
-        dot = warp_sum(dot);
-        if (lane == 0 && j < n) p_s[g][j] = dot * scale;
+    for (int kk = 0; kk < KPG; ++kk) {
+      const int j = (kk * S::WK + wk) * S::KPW + kg;
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) p[kk][r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int c = part + LPK * i;
+        if (S::EVEN || c < NC) {
+          float x[VEC];
+          unpack16(*reinterpret_cast<const uint4*>(ks + S::phys(j, c)), x);
+#pragma unroll
+          for (int r = 0; r < RPW; ++r)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              p[kk][r] = fmaf(qr[r][i * VEC + e], x[e], p[kk][r]);
+        }
+      }
+#pragma unroll
+      for (int off = LPK / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < RPW; ++r)
+          p[kk][r] += __shfl_xor_sync(0xffffffffu, p[kk][r], off);
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) p[kk][r] *= a.scale;
+    }
+    // online softmax: rescale by exp(m_old - m_new) (1 where m did not
+    // rise), then p = exp(s - m_new); keys past the range give p = 0
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int kk = 0; kk < KPG; ++kk)
+        if ((kk * S::WK + wk) * S::KPW + kg < valid) mx = fmaxf(mx, p[kk][r]);
+      const float corr = expf(m[r] - mx);
+      m[r] = mx;
+      l[r] *= corr;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][e] *= corr;
+#pragma unroll
+      for (int kk = 0; kk < KPG; ++kk) {
+        const bool in = (kk * S::WK + wk) * S::KPW + kg < valid;
+        p[kk][r] = in ? expf(p[kk][r] - mx) : 0.f;
+        l[r] += p[kk][r];
       }
     }
-  }
-  __syncthreads();
-
-  // softmax over this chunk's n keys, one warp per query row
-  for (int g = warp; g < G; g += WARPS) {
-    float mx = NEG_INF;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[g][j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = expf(p_s[g][j] - mx);
-      p_s[g][j] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      m_s[g] = mx;
-      l_s[g] = sum;
-    }
-  }
-  __syncthreads();
-
-  // o = P . V, each warp over its keys, then summed across warps
-  float acc[G][E];
+    // o += p v
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int kk = 0; kk < KPG; ++kk) {
+      const int j = (kk * S::WK + wk) * S::KPW + kg;
+      if (j < valid) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
-  for (int j0 = warp; j0 < n; j0 += WARPS * UNROLL) {
-    float vr[UNROLL][E];
+        for (int i = 0; i < CPL; ++i) {
+          const int c = part + LPK * i;
+          if (S::EVEN || c < NC) {
+            float x[VEC];
+            unpack16(*reinterpret_cast<const uint4*>(vs + S::phys(j, c)), x);
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + u * WARPS;
-      const bool ok = j < n && rows.owned(j);
-      const T* row = ok ? rows.value(j) : nullptr;
+            for (int r = 0; r < RPW; ++r)
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        vr[u][e] = ok && has(e) ? to_f32(row[lane + 32 * e]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + u * WARPS;
-      if (j < n) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float p = p_s[g][j];
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            if (has(e)) acc[g][e] += p * vr[u][e];
+              for (int e = 0; e < VEC; ++e)
+                acc[r][i * VEC + e] =
+                    fmaf(p[kk][r], x[e], acc[r][i * VEC + e]);
+          }
         }
       }
     }
+  };
+
+  // the key loop: STAGES - 1 tiles in flight ahead of the one computed
+  if (PAGED) {
+#pragma unroll
+    for (int t = 0; t < STAGES - 1; ++t)
+      if (t < nt) stage_offsets(t);
+    __syncthreads();
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (has(e)) red[warp][g][lane + 32 * e] = acc[g][e];
-  __syncthreads();
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nt) load(t);
+    cp_commit();
+  }
+  if (PAGED && STAGES - 1 < nt) stage_offsets(STAGES - 1);
+  for (int t = 0; t < nt; ++t) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // tile t landed for all; stage (t - 1) free
+    if (t + STAGES - 1 < nt) load(t + STAGES - 1);
+    cp_commit();
+    if (PAGED && t + STAGES < nt) stage_offsets(t + STAGES);
+    compute(t);
+  }
+  cp_wait<0>();
 
-  for (int idx = threadIdx.x; idx < G * D; idx += THREADS) {
-    const int g = idx / D, d = idx % D;
+  // merge the warp's key groups (lanes part, part + LPK, ...) by shuffles
+#pragma unroll
+  for (int off = LPK; off < 32; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+      const float mx = fmaxf(m[r], mo);
+      const float ca = expf(m[r] - mx), cb = expf(mo - mx);
+      l[r] = l[r] * ca + lo * cb;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+        acc[r][e] = acc[r][e] * ca + ao * cb;
+      }
+      m[r] = mx;
+    }
+  __syncthreads();  // every warp done with the ring
+
+  // the warps' partials, then the block's (the ring is free now)
+  constexpr int GD = G * D, WK = S::WK;
+  float* o_w = reinterpret_cast<float*>(smem);  // (WK, G, D)
+  float* m_w = o_w + WK * GD;                   // (WK, G)
+  float* l_w = m_w + WK * G;
+  float* o_b = WK > 1 ? l_w + WK * G : o_w;     // (G, D)
+  float* m_b = WK > 1 ? o_b + GD : m_w;
+  float* l_b = WK > 1 ? m_b + G : l_w;
+  if (kg == 0) {
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int g = gw * RPW + r;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int c = part + LPK * i;
+        if (S::EVEN || c < NC) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            o_w[(wk * G + g) * D + c * VEC + e] = acc[r][i * VEC + e];
+        }
+      }
+      if (part == 0) {
+        m_w[wk * G + g] = m[r];
+        l_w[wk * G + g] = l[r];
+      }
+    }
+  }
+  if (WK > 1) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < GD + G; idx += THREADS) {
+      const int g = idx < GD ? idx / D : idx - GD;
+      float gm = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < WK; ++w) gm = fmaxf(gm, m_w[w * G + g]);
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WK; ++w)
+        sum += (idx < GD ? o_w[w * GD + idx] : l_w[w * G + g]) *
+               expf(m_w[w * G + g] - gm);
+      if (idx < GD) {
+        o_b[idx] = sum;
+      } else {
+        m_b[g] = gm;
+        l_b[g] = sum;
+      }
+    }
+  }
+  __syncthreads();  // the block's partial is whole
+
+  // Block s of the cluster merges slice s of o, [s SL, (s + 1) SL); block 0
+  // also m and l.  Each block stores its slices, with all of its m and l,
+  // into slot `rank` of the owners' gather buffers through distributed
+  // shared memory; after one barrier every block reads only its own.
+  const int sl = ceil_div(GD, csize), slot = sl + 2 * G;
+  float* gather = PAGED ? reinterpret_cast<float*>(ids + a.max_ids)
+                        : reinterpret_cast<float*>(offs);  // (C, slot)
+  cluster_wait();  // every block of the cluster runs
+  for (int idx = threadIdx.x; idx < csize * slot; idx += THREADS) {
+    const int s = idx / slot, e = idx - s * slot, i = s * sl + e;
+    const float x = e < sl ? (i < GD ? o_b[i] : 0.f)
+                           : (e < sl + G ? m_b[e - sl] : l_b[e - sl - G]);
+    cluster.map_shared_rank(gather, s)[rank * slot + e] = x;
+  }
+  cluster.sync();  // every slice in its owner's gather buffer
+
+  // this block's slice, merged in rank order
+  for (int e = threadIdx.x; e < sl + (rank == 0 ? G : 0); e += THREADS) {
+    const int i = rank * sl + e;
+    if (e < sl && i >= GD) continue;
+    const int g = e < sl ? i / D : e - sl;
+    float mr[MAX_CLUSTER];
+    float gm = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      mr[r] = r < csize ? gather[r * slot + sl + g] : NEG_INF;
+      gm = fmaxf(gm, mr[r]);
+    }
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += red[w][g][d];
-    po[part * G * D + idx] = sum;
-  }
-  if (threadIdx.x < G) {
-    pm[part * G + threadIdx.x] = m_s[threadIdx.x];
-    pl[part * G + threadIdx.x] = l_s[threadIdx.x];
-  }
-}
-
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(THREADS)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
-                    float* __restrict__ po, float* __restrict__ pm,
-                    float* __restrict__ pl, int s, int kvh, int n_splits,
-                    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                    int64_t v_ss, int64_t v_sh, float scale) {
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int len = min(lengths[b], s);
-  const int col0 = split * CHUNK;
-  if (col0 >= len) return;  // wholly past the slot's valid length
-  const int64_t cell = (int64_t)b * kvh + h;  // (slot, kv head)
-  const DenseRows<T> rows{k + b * k_sb + h * k_sh + (int64_t)col0 * k_ss,
-                          v + b * v_sb + h * v_sh + (int64_t)col0 * v_ss,
-                          k_ss, v_ss};
-  split_body<T, D, G>(q, rows, min(CHUNK, len - col0), cell,
-                      cell * n_splits + split, po, pm, pl, scale);
-}
-
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(THREADS)
-paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ table,
-                   const int* __restrict__ lengths, float* __restrict__ po,
-                   float* __restrict__ pm, float* __restrict__ pl,
-                   int max_pages, int ps, int kvh, int n_splits, int64_t k_sp,
-                   int64_t k_so, int64_t k_sh, int64_t v_sp, int64_t v_so,
-                   int64_t v_sh, float scale) {
-  __shared__ int pid_s[CHUNK + 1];
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int len = min(lengths[b], max_pages * ps);
-  const int col0 = split * CHUNK;
-  if (col0 >= len) return;  // wholly past the slot's valid length
-  const int n = min(CHUNK, len - col0);
-  // the chunk's pages, logical page0 .. page0 + n_pages - 1, all below
-  // ceil(len / ps) <= max_pages: no table entry past the length is read
-  const int page0 = col0 / ps;
-  const int n_pages = (col0 + n - 1) / ps - page0 + 1;
-  for (int i = threadIdx.x; i < n_pages; i += THREADS)
-    pid_s[i] = table[(int64_t)b * max_pages + page0 + i];
-  __syncthreads();
-  const int64_t cell = (int64_t)b * kvh + h;
-  const PagedRows<T> rows{k + h * k_sh, v + h * v_sh, pid_s, col0, page0, ps,
-                          k_sp, k_so, v_sp, v_so};
-  split_body<T, D, G>(q, rows, n, cell, cell * n_splits + split, po, pm, pl,
-                      scale);
-}
-
-// Merge the chunk partials of one (slot, kv head): block of D threads.
-// ``s`` is the logical cache length (max_pages * page_size when paged).
-__global__ void decode_merge_kernel(const int* __restrict__ lengths,
-                                    const float* __restrict__ po,
-                                    const float* __restrict__ pm,
-                                    const float* __restrict__ pl,
-                                    float* __restrict__ o,
-                                    float* __restrict__ m,
-                                    float* __restrict__ l, int s, int kvh,
-                                    int g_size, int d_size, int n_splits) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  int len = lengths[b];
-  if (len > s) len = s;
-  const int n_valid = len > 0 ? (len + CHUNK - 1) / CHUNK : 0;
-  const int64_t cell = (int64_t)b * kvh + h;
-  for (int g = 0; g < g_size; ++g) {
-    float gm = NEG_INF;
-    for (int sp = 0; sp < n_valid; ++sp)
-      gm = fmaxf(gm, pm[(cell * n_splits + sp) * g_size + g]);
-    float o_acc = 0.f, l_acc = 0.f;
-    for (int sp = 0; sp < n_valid; ++sp) {
-      const int64_t part = cell * n_splits + sp;
-      const float w = expf(pm[part * g_size + g] - gm);
-      o_acc += po[(part * g_size + g) * d_size + d] * w;
-      l_acc += pl[part * g_size + g] * w;
-    }
-    o[(cell * g_size + g) * d_size + d] = o_acc;
-    if (d == 0) {
-      m[cell * g_size + g] = gm;
-      l[cell * g_size + g] = l_acc;
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      if (r < csize)
+        sum += gather[r * slot + (e < sl ? e : sl + G + g)] *
+               expf(mr[r] - gm);
+    if (e < sl) {
+      a.o[cell * GD + i] = sum;
+    } else {
+      a.m[cell * G + g] = gm;
+      a.l[cell * G + g] = sum;
     }
   }
 }
 
-// Call launch(T(), Int<D>(), Int<G>()) for a supported (dtype, d, g);
-// return the launch's error, or cudaErrorInvalidValue for another shape.
-template <typename T, int D, class F>
-bool by_group(int g, F& launch) {
+// At most this many blocks an SM in the one wave a launch aims for: more,
+// each with fewer keys, ran no faster on the H100 (PERF.md, PR 19).
+constexpr int MAX_BLOCKS_PER_SM = 4;
+
+int sm_count() {
+  static std::atomic<int> n{0};
+  if (n.load(std::memory_order_relaxed) == 0) {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) ==
+            cudaSuccess)
+      n.store(v, std::memory_order_relaxed);
+  }
+  return std::max(1, n.load(std::memory_order_relaxed));
+}
+
+// Blocks of an instance an SM holds with `bytes` of dynamic shared memory,
+// remembered for the last size asked.
+template <typename T, int D, int G, bool PAGED>
+cudaError_t blocks_per_sm(size_t bytes, int* n) {
+  static std::atomic<uint64_t> memo{0};  // bytes << 8 | blocks
+  const uint64_t seen = memo.load(std::memory_order_relaxed);
+  if (seen >> 8 == bytes) {
+    *n = (int)(seen & 0xff);
+    return cudaSuccess;
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, decode_kernel<T, D, G, PAGED>, THREADS, bytes);
+  if (err == cudaSuccess)
+    memo.store((uint64_t)bytes << 8 | (uint64_t)std::min(*n, 255),
+               std::memory_order_relaxed);
+  return err;
+}
+
+// Launch in clusters of the most blocks (8, 4, 2 or 1) that keep the grid
+// in one wave of at most MAX_BLOCKS_PER_SM blocks an SM and give each block
+// at least a tile of a full-length slot.
+template <typename T, int D, int G, bool PAGED>
+cudaError_t launch(Args a, int b, cudaStream_t st) {
+  using S = Shape<T, D, G>;
+  constexpr int GD = G * D;
+  const auto kernel = decode_kernel<T, D, G, PAGED>;
+  // page ids a block stages: its range spans at most ceil(R / ps) + 1 pages
+  const auto ids_for = [&](int c) {
+    const int per = ceil_div(ceil_div(a.s, c), TILE) * TILE;
+    return PAGED ? ceil_div(per, a.ps) + 1 : 0;
+  };
+  const auto bytes_for = [&](int c) {
+    return (size_t)S::RING_BYTES +
+           (PAGED ? S::OFF_BYTES + ids_for(c) * sizeof(int) : 0) +
+           c * (ceil_div(GD, c) + 2 * G) * sizeof(float);
+  };
+  size_t most = 0;
+  for (int c = 1; c <= MAX_CLUSTER; c *= 2)
+    most = std::max(most, bytes_for(c));
+  static std::atomic<size_t> allowed{48 * 1024};  // per instance
+  if (most > allowed.load(std::memory_order_relaxed)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    if (err != cudaSuccess) return err;
+    allowed.store(most, std::memory_order_relaxed);
+  }
+  int per_sm = 0;
+  const cudaError_t occ = blocks_per_sm<T, D, G, PAGED>(most, &per_sm);
+  if (occ != cudaSuccess) return occ;
+  const int64_t room =
+      (int64_t)sm_count() * std::min(per_sm, MAX_BLOCKS_PER_SM);
+  int c = MAX_CLUSTER;
+  while (c > 1 && (ceil_div(a.s, c) < TILE || (int64_t)b * a.kvh * c > room))
+    c /= 2;
+  a.max_ids = ids_for(c);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c, a.kvh, b);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = bytes_for(c);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+template <typename T, int D, bool PAGED>
+cudaError_t by_group(int g, const Args& a, int b, cudaStream_t st) {
   switch (g) {
-    case 1: launch(T(), Int<D>(), Int<1>()); return true;
-    case 2: launch(T(), Int<D>(), Int<2>()); return true;
-    case 4: launch(T(), Int<D>(), Int<4>()); return true;
-    case 8: launch(T(), Int<D>(), Int<8>()); return true;
-    default: return false;
+    case 1: return launch<T, D, 1, PAGED>(a, b, st);
+    case 2: return launch<T, D, 2, PAGED>(a, b, st);
+    case 3: return launch<T, D, 3, PAGED>(a, b, st);
+    case 4: return launch<T, D, 4, PAGED>(a, b, st);
+    case 6: return launch<T, D, 6, PAGED>(a, b, st);
+    case 8: return launch<T, D, 8, PAGED>(a, b, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-template <class F>
-cudaError_t dispatch(int dtype, int d, int g, F launch) {
-  bool ok = false;
-  if (dtype == 0 && d == 64) ok = by_group<float, 64>(g, launch);
-  else if (dtype == 0 && d == 80) ok = by_group<float, 80>(g, launch);
-  else if (dtype == 0 && d == 128) ok = by_group<float, 128>(g, launch);
-  else if (dtype == 1 && d == 64) ok = by_group<__nv_bfloat16, 64>(g, launch);
-  else if (dtype == 1 && d == 80) ok = by_group<__nv_bfloat16, 80>(g, launch);
-  else if (dtype == 1 && d == 128) ok = by_group<__nv_bfloat16, 128>(g, launch);
-  return ok ? cudaGetLastError() : cudaErrorInvalidValue;
-}
-
-cudaError_t merge(const void* lengths, void* po, void* pm, void* pl, void* o,
-                  void* m, void* l, int b, int s, int kvh, int g, int d,
-                  int n_splits, cudaStream_t st) {
-  decode_merge_kernel<<<dim3(kvh, b), d, 0, st>>>(
-      static_cast<const int*>(lengths), static_cast<const float*>(po),
-      static_cast<const float*>(pm), static_cast<const float*>(pl),
-      static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
-      s, kvh, g, d, n_splits);
-  return cudaGetLastError();
+template <bool PAGED>
+cudaError_t dispatch(int dtype, int d, int g, const Args& a, int b,
+                     cudaStream_t st) {
+  if (dtype == 0 && d == 64) return by_group<float, 64, PAGED>(g, a, b, st);
+  if (dtype == 0 && d == 80) return by_group<float, 80, PAGED>(g, a, b, st);
+  if (dtype == 0 && d == 128) return by_group<float, 128, PAGED>(g, a, b, st);
+  if (dtype == 1 && d == 64)
+    return by_group<__nv_bfloat16, 64, PAGED>(g, a, b, st);
+  if (dtype == 1 && d == 80)
+    return by_group<__nv_bfloat16, 80, PAGED>(g, a, b, st);
+  if (dtype == 1 && d == 128)
+    return by_group<__nv_bfloat16, 128, PAGED>(g, a, b, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Keys per split, for the wrapper's scratch sizing.
-extern "C" int flash_decode_chunk() { return CHUNK; }
-
 // q (B, KV, G, D) contiguous; k, v (B, S, KV, D) with unit stride on D and
-// element strides (b, s, h) in k_s* / v_s*; lengths (B,) int32.
-// Scratch po (B, KV, n_splits, G, D), pm / pl (B, KV, n_splits, G) fp32,
-// n_splits = ceil(S / CHUNK).  Outputs o (B, KV, G, D), m / l (B, KV, G)
-// fp32.  dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// element strides (b, s, h) in k_s* / v_s*; lengths (B,) int32.  Outputs o
+// (B, KV, G, D), m / l (B, KV, G) fp32.  dtype: 0 = float32, 1 = bfloat16.
+// q, k, v 16-byte aligned with strides of 16-byte multiples.  Returns a
+// cudaError_t.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
-                                const void* lengths, void* po, void* pm,
-                                void* pl, void* o, void* m, void* l, int b,
-                                int s, int kvh, int g, int d,
+                                const void* lengths, void* o, void* m,
+                                void* l, int b, int s, int kvh, int g, int d,
                                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                 int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_splits = (s + CHUNK - 1) / CHUNK;
-  const dim3 grid(n_splits, kvh, b);
-  const float scale = 1.f / std::sqrt((float)d);
-  cudaError_t err = dispatch(dtype, d, g, [&](auto t, auto dd, auto gg) {
-    using T = decltype(t);
-    decode_split_kernel<T, decltype(dd)::value, decltype(gg)::value>
-        <<<grid, THREADS, 0, st>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const int*>(lengths),
-            static_cast<float*>(po), static_cast<float*>(pm),
-            static_cast<float*>(pl), s, kvh, n_splits, k_sb, k_ss, k_sh,
-            v_sb, v_ss, v_sh, scale);
-  });
-  if (err != cudaSuccess) return (int)err;
-  return (int)merge(lengths, po, pm, pl, o, m, l, b, s, kvh, g, d, n_splits,
-                    st);
+  Args a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.lengths = static_cast<const int*>(lengths);
+  a.o = static_cast<float*>(o);
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  a.s = s;
+  a.kvh = kvh;
+  a.k_s0 = k_sb;
+  a.k_s1 = k_ss;
+  a.k_sh = k_sh;
+  a.v_s0 = v_sb;
+  a.v_s1 = v_ss;
+  a.v_sh = v_sh;
+  a.scale = 1.f / std::sqrt((float)d);
+  return (int)dispatch<false>(dtype, d, g, a, b,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // q (B, KV, G, D) contiguous; k, v pools (n_pages, page_size, KV, D) with
 // unit stride on D and element strides (page, offset, h) in k_s* / v_s*;
 // page_table (B, max_pages) int32 contiguous, -1 = unowned, every other
 // entry a page id below n_pages; lengths (B,) int32, clamped to
-// max_pages * page_size.  Scratch and outputs as flash_decode_fwd with
-// n_splits = ceil(max_pages * page_size / CHUNK).  Returns a cudaError_t.
+// max_pages * page_size < 2^31.  Outputs and alignment as
+// flash_decode_fwd.  Returns a cudaError_t.
 extern "C" int flash_decode_paged_fwd(
     const void* q, const void* k, const void* v, const void* page_table,
-    const void* lengths, void* po, void* pm, void* pl, void* o, void* m,
-    void* l, int b, int max_pages, int page_size, int kvh, int g, int d,
-    int64_t k_sp, int64_t k_so, int64_t k_sh, int64_t v_sp, int64_t v_so,
-    int64_t v_sh, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int s = max_pages * page_size;
-  const int n_splits = (s + CHUNK - 1) / CHUNK;
-  const dim3 grid(n_splits, kvh, b);
-  const float scale = 1.f / std::sqrt((float)d);
-  cudaError_t err = dispatch(dtype, d, g, [&](auto t, auto dd, auto gg) {
-    using T = decltype(t);
-    paged_split_kernel<T, decltype(dd)::value, decltype(gg)::value>
-        <<<grid, THREADS, 0, st>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const int*>(page_table),
-            static_cast<const int*>(lengths), static_cast<float*>(po),
-            static_cast<float*>(pm), static_cast<float*>(pl), max_pages,
-            page_size, kvh, n_splits, k_sp, k_so, k_sh, v_sp, v_so, v_sh,
-            scale);
-  });
-  if (err != cudaSuccess) return (int)err;
-  return (int)merge(lengths, po, pm, pl, o, m, l, b, s, kvh, g, d, n_splits,
-                    st);
+    const void* lengths, void* o, void* m, void* l, int b, int max_pages,
+    int page_size, int kvh, int g, int d, int64_t k_sp, int64_t k_so,
+    int64_t k_sh, int64_t v_sp, int64_t v_so, int64_t v_sh, int dtype,
+    void* stream) {
+  if (page_size < 1) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.lengths = static_cast<const int*>(lengths);
+  a.table = static_cast<const int*>(page_table);
+  a.o = static_cast<float*>(o);
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  a.s = max_pages * page_size;
+  a.kvh = kvh;
+  a.max_pages = max_pages;
+  a.ps = page_size;
+  // col / ps for col < 2^31 as umulhi(col, mul) >> shift, mul = ceil(2^p /
+  // ps), p = 31 + ceil(log2 ps) (CUTLASS's FastDivmod); ps = 1 is col
+  int log2 = 0;
+  while ((1 << log2) < page_size) ++log2;
+  a.ps_shift = log2 - 1;
+  a.ps_mul = page_size == 1 ? 0u : (uint32_t)(((1ull << (31 + log2))
+                                               + page_size - 1) / page_size);
+  a.k_s0 = k_sp;
+  a.k_s1 = k_so;
+  a.k_sh = k_sh;
+  a.v_s0 = v_sp;
+  a.v_s1 = v_so;
+  a.v_sh = v_sh;
+  a.scale = 1.f / std::sqrt((float)d);
+  return (int)dispatch<true>(dtype, d, g, a, b,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,9 @@
 // Device helpers shared by the Hopper (sm_90a) kernels of this directory:
 // asynchronous copies, error-compensated TF32 and bf16 products on
 // mma.sync, and the scalar odds and ends around them.  Included by
-// flash_attention_fwd.cu, flash_attention_bwd.cu, ssd.cu and wkv6.cu; each
-// builds into a library of its own, so everything here has internal
-// linkage.
+// flash_attention_fwd.cu, flash_attention_bwd.cu, flash_decode.cu, ssd.cu
+// and wkv6.cu; each builds into a library of its own, so everything here
+// has internal linkage.
 //
 // Error-compensated TF32: an fp32 operand x is split into hi = tf32(x)
 // (cvt.rna) and lo = tf32(x - hi), and a product is a_lo b_hi + a_hi b_lo
@@ -84,6 +84,33 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the phases of the cluster's barrier: arrive without ordering anything
+// (at a kernel's start, so that a later wait proves every block of the
+// cluster runs and its shared memory exists), and wait
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// 16 bytes as fp32 values: 4 fp32, or 8 bf16 (exact: a bf16's bits are the
+// high half of its fp32's), the lower address first
+__device__ __forceinline__ void unpack16(const uint4& u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&x)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -7,8 +7,11 @@ contracts: q (B, KV, G, D); dense caches (B, S, KV, D), or paged pools
 (-1 = unowned); lengths (B,) int32 counts of valid entries -> fp32
 partials ``(o (B, KV, G, D) unnormalized, m (B, KV, G), l (B, KV, G))``.
 Caches and pools may be strided views (the model passes one layer of its
-stacked cache); only their last dim must be contiguous.  A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+stacked cache); their last dim must be contiguous, and on the card they
+start 16-byte aligned with strides of 16-byte multiples (the kernels load
+16 bytes at a time).  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel (one launch a call: a thread-block cluster a (slot,
+kv head) merges its blocks' partials itself) or raises.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from repro_torch.kernels._build import check, library
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128)
-GROUP_SIZES = (1, 2, 4, 8)
+GROUP_SIZES = (1, 2, 3, 4, 6, 8)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,16 +51,14 @@ def flash_decode_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _lib():
     lib = library("flash_decode")
     fn = lib.flash_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     paged = lib.flash_decode_paged_fwd
-    paged.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    paged.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                       + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
     paged.restype = ctypes.c_int
-    lib.flash_decode_chunk.argtypes = []
-    lib.flash_decode_chunk.restype = ctypes.c_int
-    return fn, paged, lib.flash_decode_chunk()
+    return fn, paged
 
 
 def _check(q, k, v, lengths):
@@ -85,17 +86,19 @@ def _check(q, k, v, lengths):
     if b > 65535 or kvh > 65535 or k.shape[1] < 1:
         raise ValueError(f"B and KV must be <= 65535 and S >= 1, got "
                          f"{tuple(k.shape)}")
+    elt = q.element_size()
+    if (any(t.data_ptr() % 16 for t in (q, k, v))
+            or any(t.stride(i) * elt % 16 for t in (k, v) for i in range(3))):
+        raise ValueError("q and the caches must start 16-byte aligned and the "
+                         "caches' strides be multiples of 16 bytes (the "
+                         "kernels load 16 bytes at a time)")
 
 
-def _partials(q: torch.Tensor, n_splits: int):
-    """fp32 scratch (po, pm, pl) for ``n_splits`` chunks and outputs
-    (o, m, l)."""
+def _outputs(q: torch.Tensor):
+    """fp32 outputs (o, m, l)."""
     b, kvh, g, d = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty((b, kvh, n_splits, g, d), **f32),
-            torch.empty((b, kvh, n_splits, g), **f32),
-            torch.empty((b, kvh, n_splits, g), **f32),
-            torch.empty((b, kvh, g, d), **f32),
+    return (torch.empty((b, kvh, g, d), **f32),
             torch.empty((b, kvh, g), **f32),
             torch.empty((b, kvh, g), **f32))
 
@@ -103,22 +106,20 @@ def _partials(q: torch.Tensor, n_splits: int):
 def flash_decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor):
     """fp32 partials ``(o, m, l)``.  ``launches`` counts the CUDA launches
-    this wrapper made (one per call: split pass plus merge)."""
+    this wrapper made (one per call)."""
     if not on_card(q):
         return flash_decode_fwd_plain(q, k, v, lengths)
     _check(q, k, v, lengths)
     if k.shape[0] != q.shape[0]:
         raise ValueError(f"cache {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    fn, _, chunk = _lib()
+    fn, _ = _lib()
     b, kvh, g, d = q.shape
-    s = k.shape[1]
-    po, pm, pl, o, m, l = _partials(q, -(-s // chunk))
+    o, m, l = _outputs(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             po.data_ptr(), pm.data_ptr(), pl.data_ptr(), o.data_ptr(),
-             m.data_ptr(), l.data_ptr(), b, s, kvh, g, d,
-             k.stride(0), k.stride(1), k.stride(2),
+             o.data_ptr(), m.data_ptr(), l.data_ptr(), b, k.shape[1], kvh, g,
+             d, k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
              DTYPE_CODES[q.dtype], stream), "flash_decode_fwd")
     flash_decode_fwd.launches += 1
@@ -159,7 +160,7 @@ def flash_decode_paged_fwd(q: torch.Tensor, k_pool: torch.Tensor,
     """fp32 partials ``(o, m, l)`` over the pools through ``page_table``.
     Page ids must lie below n_pages (the kernel trusts them, as the
     reference's index map does).  ``launches`` counts the CUDA launches
-    this wrapper made (one per call: split pass plus merge)."""
+    this wrapper made (one per call)."""
     if not on_card(q):
         return flash_decode_paged_fwd_plain(q, k_pool, v_pool, page_table,
                                             lengths)
@@ -177,14 +178,13 @@ def flash_decode_paged_fwd(q: torch.Tensor, k_pool: torch.Tensor,
     if max_pages * page_size >= 2 ** 31:
         raise ValueError(f"max_pages {max_pages} x page_size {page_size} "
                          f"overflows int32")
-    _, fn, chunk = _lib()
+    _, fn = _lib()
     kvh, g, d = q.shape[1:]
-    po, pm, pl, o, m, l = _partials(q, -(-(max_pages * page_size) // chunk))
+    o, m, l = _outputs(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), po.data_ptr(),
-             pm.data_ptr(), pl.data_ptr(), o.data_ptr(), m.data_ptr(),
-             l.data_ptr(), b, max_pages, page_size, kvh, g, d,
+             page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+             m.data_ptr(), l.data_ptr(), b, max_pages, page_size, kvh, g, d,
              k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
              v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
              DTYPE_CODES[q.dtype], stream), "flash_decode_paged_fwd")

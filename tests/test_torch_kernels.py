@@ -200,7 +200,7 @@ def _decode_inputs(seed, g):
     return q, kc, vc, lengths
 
 
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("g", [1, 3, 4, 6])
 def test_flash_decode_matches_jax(jx, g):
     q, kc, vc, lengths = _decode_inputs(g, g)
     tq, tk, tv, tl = map(torch.from_numpy, (q, kc, vc, lengths))
