@@ -36,6 +36,16 @@ weights from a seed:
   training shape (against SDPA's bf16 calls), two backward runs bit for
   bit, and one loss and backward of gpt2-117m with bf16 params through
   the kernels' bf16 instances against the blockwise backend;
+* the paper's experiments on GPT-2 117M at full width through the same
+  kernels: Table 1's baseline at the training run's LR and at 4x, the
+  joint SLW recipe and the variance-gated LR throttle at 4x (30 steps
+  each; plans against ``predict_trajectory``, the throttle's LRs replayed
+  on the host), Table 3's Pearson correlation of the loss ratio with the
+  Adam variance max against ``scipy.stats.pearsonr``, and the §4 tuner on
+  12-step probes; then the SLW arm again with checkpoints, a crash at step
+  15 under a ``TrainSupervisor``, the resume from the step-10 checkpoint
+  on the card (steps 11-30 against the uninterrupted arm) and a corrupted
+  newest checkpoint quarantined in favour of the one before;
 * RWKV-6: the WKV-6 forward and backward kernels against their plain
   versions (and the backward against autograd through the plain forward)
   at every shape the RWKV paths give them, then full-depth, full-width
@@ -1450,6 +1460,321 @@ def phase_train_parity(train: dict) -> None:
         check(rel[key] <= PARITY_RTOL, f"parity {key}: {rel[key]}")
     emit("train_parity", steps=n, max_rel_err=rel, rtol=PARITY_RTOL,
          seqlens=plain.seqlen_history, batches=plain.batch_history)
+
+# the paper's experiments at full width (Table 1, Fig. 1 / Table 3, §4):
+# four arms of PAPER_STEPS steps on train_config()'s shapes, the aggressive
+# ones at 4x its LR; then the low-cost tuner on short probes of the joint
+# recipe at that LR
+PAPER_STEPS = TRAIN_STEPS
+PAPER_LR = 4 * 6e-4
+PROBE_STEPS, PROBE_EVAL, PROBE_WARMUP = 12, 4, 3
+PROBE_GRID, PROBE_T_RANGE = (8, 32, 128), (1, 4)
+# the checkpoint phase: slw_4x under a supervisor, a crash mid-warmup
+CKPT_INTERVAL, CKPT_KEEP, CKPT_FAIL = 10, 3, 15
+# a resumed step's loss against the uninterrupted run's (fixed before the
+# first run: the same inputs through the same kernels on one card give the
+# same bits; this is the room allowed if an op of the step is not
+# bit-reproducible, its cause to be written down)
+RESUME_RTOL = 1e-6
+# Pearson's p against scipy.stats.pearsonr (both float64)
+PEARSON_RTOL = 1e-9
+
+
+def paper_arms() -> dict:
+    """name -> TrainConfig of phase ``paper``'s arms: the baseline at
+    train_config()'s LR and at 4x (no SLW, no batch warmup: every step
+    16 x 1024), the joint recipe of train_config() at 4x, and the 4x
+    baseline with the variance-gated LR throttle."""
+    from repro_torch.launch import paper
+    base = train_config()
+    four = lambda tc: dataclasses.replace(tc, optimizer=dataclasses.replace(
+        tc.optimizer, lr=PAPER_LR))
+    plain = dataclasses.replace(
+        base, slw=dataclasses.replace(base.slw, enabled=False),
+        batch_warmup=dataclasses.replace(base.batch_warmup, enabled=False))
+    return {"baseline": plain, "baseline_4x": four(plain),
+            "slw_4x": four(base), "throttle_4x": paper.with_throttle(
+                four(plain))}
+
+
+def probe_base():
+    """The tuner's probe: the joint recipe at PAPER_LR for PROBE_STEPS steps
+    with PROBE_WARMUP steps of LR warmup (the tuner sets its SLW)."""
+    base = paper_arms()["slw_4x"]
+    return dataclasses.replace(base, optimizer=dataclasses.replace(
+        base.optimizer, warmup_steps=PROBE_WARMUP,
+        warmup_tokens=PROBE_WARMUP * B_TRAIN * S_TRAIN,
+        total_steps=PROBE_STEPS,
+        total_tokens=PROBE_STEPS * B_TRAIN * S_TRAIN))
+
+
+def probe_configs() -> list:
+    """Every config the tuner can probe on its finite grid."""
+    base = probe_base()
+    return [dataclasses.replace(base, slw=dataclasses.replace(
+        base.slw, enabled=True, start_seq_len=s0, duration_steps=m * PROBE_WARMUP))
+            for s0 in PROBE_GRID
+            for m in range(PROBE_T_RANGE[0], PROBE_T_RANGE[1] + 1)]
+
+
+def paper_shapes() -> set:
+    """Every (batch, seq) phases ``paper`` and ``checkpoint`` can run."""
+    from repro_torch.core.regulators import predict_trajectory
+    runs = [(tc, PAPER_STEPS) for tc in paper_arms().values()]
+    runs += [(tc, PROBE_STEPS) for tc in probe_configs()]
+    return {(p.batch_size, p.seq_len) for tc, n in runs
+            for p in predict_trajectory(tc, n)} | {(EVAL_BATCH, S_TRAIN)}
+
+
+def _run_shapes(res) -> set:
+    return set(zip(res.batch_history, res.seqlen_history)) | {
+        (EVAL_BATCH, S_TRAIN)}
+
+
+def _want_launches(n_layers: int, steps: int, evals: int) -> dict:
+    want = {name: n_layers * steps for name in _fa_kernels()}
+    want["flash_attention_fwd"] += n_layers * evals
+    return want
+
+
+def phase_paper(dev: dict, checked: set) -> dict:
+    """Table 1's arms at full width, the Table 3 correlation of the 4x
+    baseline and the §4 tuner on short probes, on the flash kernels."""
+    from repro_torch.core.regulators import (StepPlan, StepTelemetry,
+                                             VarianceLRThrottle,
+                                             predict_trajectory)
+    from repro_torch.core.tuning import tune_slw
+    from repro_torch.launch import paper
+    from repro_torch.launch.train import TrainerHook
+    from scipy import stats
+
+    class KeepParams(TrainerHook):
+        def on_run_end(self, tr):
+            self.params = tr.state["params"]
+
+    kernels = _fa_kernels()
+    n_layers = train_config().model.n_layers
+    for f in kernels.values():
+        f.launches = 0
+    arms, results, steps, evals = {}, {}, 0, 0
+    keep = KeepParams()
+    for name, tc in paper_arms().items():
+        hooks = [keep] if name == "slw_4x" else None
+        _, res, wall = paper.run_arm(name, tc, "cuda", eval_batch=EVAL_BATCH,
+                                     hooks=hooks)
+        steps += res.steps
+        evals += len(res.val_ppl_history)
+        check(res.steps == PAPER_STEPS, f"{name}: {res.steps} steps")
+        check(_run_shapes(res) <= checked, f"{name}: shapes "
+              f"{_run_shapes(res) - checked} not checked")
+        results[name] = res
+        arms[name] = paper.arm_stats(res, wall)
+        torch.cuda.empty_cache()
+    for name in ("baseline", "baseline_4x", "slw_4x"):
+        plans = [(p.seq_len, p.batch_size, p.lr) for p in
+                 predict_trajectory(paper_arms()[name], PAPER_STEPS)]
+        ran = list(zip(results[name].seqlen_history,
+                       results[name].batch_history,
+                       results[name].lr_history))
+        check(ran == plans, f"{name}: the executed plans are "
+              "predict_trajectory's")
+    check(all(math.isfinite(x) for x in results["slw_4x"].loss_history),
+          "slw_4x: finite losses")
+
+    # the throttle's LRs: the scheduled LR times the scale a fresh
+    # throttle computes on the host from the arm's own var_max, exactly
+    tc = paper_arms()["throttle_4x"]
+    sched = predict_trajectory(paper_arms()["baseline_4x"], PAPER_STEPS)
+    res = results["throttle_4x"]
+    replay = VarianceLRThrottle(tc.regulators[-1])
+    scales = []
+    for plan, lr, v in zip(sched, res.lr_history, res.var_max_history):
+        got = replay.plan(StepTelemetry(), StepPlan(
+            seq_len=plan.seq_len, batch_size=plan.batch_size, lr=plan.lr))
+        check(got.lr == lr, f"throttle_4x: lr {lr} != replayed {got.lr}")
+        scales.append(replay.scale)
+        replay.observe(StepTelemetry(var_max=v), 0)
+    arms["throttle_4x"].update(throttled_steps=sum(s < 1.0 for s in scales),
+                               min_scale=min(scales))
+
+    # Table 3: Pearson(loss ratio, var_max) of the 4x baseline
+    base4 = results["baseline_4x"]
+    r, p = paper.correlation(base4)["var_max"]
+    ratios = paper.loss_ratios(base4)
+    ref = stats.pearsonr(ratios, np.asarray(base4.var_max_history))
+    p_rel = abs(p - float(ref[1])) / float(ref[1])
+    check(p_rel <= PEARSON_RTOL, f"pearson p {p} vs scipy {ref[1]}")
+    r_l1, p_l1 = paper.correlation(base4)["var_l1"]
+
+    # §4: the low-cost tuner, each probe PROBE_STEPS steps
+    probes = []
+    tuned = tune_slw(paper.tuner_probe(probe_base(), PROBE_EVAL, "cuda",
+                                       runs=probes),
+                     probe_base().slw, warmup_steps=PROBE_WARMUP,
+                     seqlen_s_grid=PROBE_GRID,
+                     t_multiple_range=PROBE_T_RANGE)
+    check(tuned.probe_runs <= len(PROBE_GRID) + 3,
+          f"{tuned.probe_runs} probes")
+    for res in probes:
+        check(res.steps == PROBE_STEPS, f"probe: {res.steps} steps")
+        check(_run_shapes(res) <= checked,
+              f"probe: shapes {_run_shapes(res) - checked} not checked")
+        steps += res.steps
+        evals += len(res.val_ppl_history)
+    launches = {name: f.launches for name, f in kernels.items()}
+    want = _want_launches(n_layers, steps, evals)
+    check(launches == want, f"paper launches {launches} != {want}")
+    probe_tokens = sum(res.tokens for res in probes)
+    emit("paper", card=dev["nvidia_smi"], steps=PAPER_STEPS, lr=PAPER_LR,
+         arms=arms,
+         pearson_baseline_4x={"var_max": {"r": r, "p": p,
+                                          "scipy_p": float(ref[1]),
+                                          "p_rel_err": p_rel},
+                              "var_l1": {"r": r_l1, "p": p_l1}},
+         tuner={"trials": tuned.trials, "seqlen_s": tuned.seqlen_s,
+                "duration": tuned.duration, "probe_runs": tuned.probe_runs,
+                "probe_tokens": probe_tokens,
+                "probe_share_of_slw_4x": probe_tokens
+                / results["slw_4x"].tokens,
+                "probe_val_ppl": [[p for _, p in res.val_ppl_history]
+                                  for res in probes]},
+         launches=launches)
+    return {"launches": launches, "slw_4x": results["slw_4x"],
+            "slw_4x_params": keep.params}
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def phase_checkpoint(dev: dict, paper_out: dict, checked: set) -> dict:
+    """The joint recipe at 4x with checkpoints every CKPT_INTERVAL steps
+    under a supervisor, a crash at step CKPT_FAIL, the resume from the
+    step-10 checkpoint on the card, then a corrupted newest checkpoint
+    quarantined in favour of the one before."""
+    import shutil
+    import tempfile
+    from repro_torch import bridge
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault_tolerance import (RetryPolicy,
+                                                         TrainSupervisor)
+    from repro_torch.launch.train import Trainer
+
+    kernels = _fa_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tc = dataclasses.replace(
+            paper_arms()["slw_4x"], checkpoint_dir=ckpt_dir,
+            checkpoint_interval=CKPT_INTERVAL, keep_checkpoints=CKPT_KEEP)
+        saves, attempts = [], []
+
+        def run(resume: bool) -> str:
+            tr = Trainer(tc, eval_batch=EVAL_BATCH, stop_on_nan=False,
+                         fail_at_step=None if resume else CKPT_FAIL,
+                         device="cuda")
+            save = tr.save_checkpoint
+
+            def timed_save():
+                t0 = time.perf_counter()
+                save()
+                saves.append((tr.step, time.perf_counter() - t0))
+            tr.save_checkpoint = timed_save
+            try:
+                t0 = time.perf_counter()
+                restored = tr.resume() if resume else None
+                attempts.append({"resume": resume, "restored": restored,
+                                 "restore_s": time.perf_counter() - t0,
+                                 "device": str(tr.state["params"]["embed"]
+                                               .device)})
+                steps0 = tr.step
+                res = tr.run()
+                attempts[-1].update(result=res, first_step=steps0,
+                                    params=tr.state["params"])
+                return f"ok:{res.steps}"
+            finally:
+                # timed_save refers to tr: without this the cycle keeps the
+                # trainer's state on the card until a full collection
+                del tr.save_checkpoint
+
+        sup = TrainSupervisor(policy=RetryPolicy(max_retries=1))
+        out = sup.run(run)
+        launches = {name: f.launches for name, f in kernels.items()}
+        check(out == f"ok:{PAPER_STEPS}", f"supervised run: {out}")
+        check(sup.restarts == 1 and [f["error"] for f in sup.failures] == [
+            f"RuntimeError: injected failure at step {CKPT_FAIL}"],
+            f"failures {sup.failures}")
+        last = attempts[-1]
+        check(last["restored"] == CKPT_INTERVAL and last["first_step"]
+              == CKPT_INTERVAL, f"resumed from {last['restored']}")
+        check(last["device"].startswith("cuda"), "restored onto the card")
+        res = last["result"]
+        ref = paper_out["slw_4x"]
+        n = PAPER_STEPS - CKPT_INTERVAL
+        check(_run_shapes(res) <= checked, "checkpoint shapes not checked")
+        plans = lambda r, lo: list(zip(r.seqlen_history[lo:],
+                                       r.batch_history[lo:],
+                                       r.lr_history[lo:]))
+        check(len(res.loss_history) == n
+              and plans(res, 0) == plans(ref, CKPT_INTERVAL),
+              "resumed plans != the uninterrupted run's")
+        a = np.asarray(res.loss_history)
+        b = np.asarray(ref.loss_history[CKPT_INTERVAL:])
+        loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        check(loss_rel <= RESUME_RTOL, f"resumed losses: {loss_rel}")
+        from repro_torch.optim.transforms import tree_leaves
+        params_err = max((x - y).abs().max().item() for x, y in zip(
+            tree_leaves(last["params"]),
+            tree_leaves(paper_out["slw_4x_params"])))
+        # the steps run: CKPT_FAIL before the crash, n after, one eval
+        want = _want_launches(train_config().model.n_layers,
+                              CKPT_FAIL + n, len(res.val_ppl_history))
+        check(launches == want, f"checkpoint launches {launches} != {want}")
+        steps_saved = sorted(s for s, _ in saves)
+        check(steps_saved == [10, 20, 30], f"saved at {steps_saved}")
+        newest = Path(ckpt_dir) / f"step_{PAPER_STEPS:012d}"
+        nbytes = _dir_bytes(newest)
+        n_leaves = len(list(newest.glob("*.npy")))
+        disk = sum(_dir_bytes(p) for p in Path(ckpt_dir).iterdir())
+        check(disk < 5e9, f"{disk} bytes on disk")
+
+        # a flipped byte in the newest checkpoint's largest leaf
+        largest = max(newest.glob("*.npy"), key=lambda f: f.stat().st_size)
+        with open(largest, "r+b") as f:
+            f.seek(-1, 2)
+            byte = f.read(1)[0]
+            f.seek(-1, 2)
+            f.write(bytes([byte ^ 0xFF]))
+        mgr = CheckpointManager(ckpt_dir, CKPT_KEEP)
+        t0 = time.perf_counter()
+        step, tree, host = mgr.restore_latest(
+            bridge.abstract_train_state(tc.model, tc.optimizer))
+        restore_s = time.perf_counter() - t0
+        check(step == 2 * CKPT_INTERVAL and [q[0] for q in mgr.quarantined]
+              == [PAPER_STEPS] and "crc32" in mgr.quarantined[0][2]
+              and (Path(ckpt_dir) / f"corrupt.{newest.name}").is_dir(),
+              f"restore_latest: step {step}, {mgr.quarantined}")
+        check(host["controller"]["step"] == step, "host state's step")
+        emit("checkpoint", card=dev["nvidia_smi"],
+             failures=[f["error"] for f in sup.failures],
+             resumed_from=last["restored"],
+             steps_after_resume=n, plans_equal=True,
+             losses_bit_identical=bool(np.array_equal(a, b)),
+             loss_max_rel_err=loss_rel, rtol=RESUME_RTOL,
+             final_params_max_abs_diff=params_err,
+             val_ppl=res.val_ppl_history,
+             uninterrupted_val_ppl=ref.val_ppl_history,
+             checkpoint_bytes=nbytes, disk_bytes=disk,
+             save_s={str(s): t for s, t in saves},
+             resume_s=last["restore_s"],
+             restore_latest_s=restore_s, leaves=n_leaves,
+             quarantined=[q[0] for q in mgr.quarantined],
+             fell_back_to=step, launches=launches)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches
+
 
 # gpt2-117m in bf16: one loss and backward through the flash kernels'
 # bf16 instances, against the blockwise backend on the same bf16 params
@@ -2936,12 +3261,24 @@ def main() -> int:
     from repro_torch.core.regulators import predict_trajectory
     train_shapes = {(p.batch_size, p.seq_len) for p in predict_trajectory(
         train_config(), TRAIN_STEPS)} | {(EVAL_BATCH, S_TRAIN)}
+    train_shapes |= paper_shapes()
     bwd_timing, bwd_checked = phase_flash_attention_bwd(train_shapes)
     train = phase_train(dev, bwd_checked)
     phase_train_parity(train)
     train_launches = train["launches"]
     del train
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    paper_out = phase_paper(dev, bwd_checked)
+    torch.cuda.empty_cache()
+    ckpt_launches = phase_checkpoint(dev, paper_out, bwd_checked)
+    paper_launches = paper_out["launches"]
+    del paper_out
+    torch.cuda.empty_cache()
+    # every trainer of the two phases is gone, its state off the card
+    left = torch.cuda.memory_allocated() - held
+    check(left < 2**26, f"phases paper and checkpoint left {left} bytes "
+          "allocated on the card")
     bf16_launches = phase_grads_bf16()
     torch.cuda.empty_cache()
 
@@ -2979,6 +3316,7 @@ def main() -> int:
     ref = "src/repro/kernels/"
     by_path = {"serve": serve_launches, "serve_paged": paged_launches,
                "router": router_launches, "train": train_launches,
+               "paper": paper_launches, "checkpoint": ckpt_launches,
                "grads_bf16": bf16_launches,
                **rwkv_serve, "train_rwkv": rwkv_train, **zamba_serve,
                "train_zamba": zamba_train}

@@ -5,8 +5,8 @@ Answers to ``repro/configs/base.py``: ``ModelConfig`` (lines 15-113), and
 ``OptimizerConfig`` and ``TrainConfig`` (lines 133-331).  The fields are
 copied, not imported, so this package never imports ``repro``.
 ``ModelConfig`` keeps the fields the dense, rwkv and hybrid families
-read; ``TrainConfig`` leaves out ``gns`` and the fields only GNS,
-sharding and checkpoint cadence read, which come with their slices.
+read; ``TrainConfig`` leaves out ``gns`` and the fields only GNS and
+sharding read, which come with their slices.
 """
 from __future__ import annotations
 
@@ -105,11 +105,17 @@ class BatchWarmupConfig:
 class RegulatorSpec:
     """One entry of ``TrainConfig.regulators`` (``base.py:177``).  The port
     builds the kinds ``seqlen``, ``batch_warmup`` and ``lr``, which read
-    their parameters from the configs above; the other kinds, and the
-    fields that parametrize them, come with their slices
-    (``core.regulators.build_stack`` refuses them)."""
+    their parameters from the configs above, and ``var_lr_throttle``,
+    parametrized here (``base.py:203-206``); ``grad_noise_batch`` and
+    ``critical_batch``, and the fields that parametrize them, come with
+    their slices (``core.regulators.build_stack`` refuses them)."""
 
     kind: str
+    # var_lr_throttle
+    gate: float = 2.0  # throttle when var_max > gate * trailing mean
+    floor: float = 0.1  # never scale LR below floor * scheduled
+    backoff: float = 0.5  # scale *= backoff on a spike
+    recovery: float = 1.2  # scale *= recovery per calm step (capped at 1)
 
 
 @dataclass(frozen=True)
@@ -143,10 +149,7 @@ class OptimizerConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """``base.py:313``, without ``gns``, ``sharding_rules``,
-    ``cast_params_before_use``, ``checkpoint_interval``,
-    ``keep_checkpoints`` and the unread ``log_interval``.
-    ``checkpoint_dir`` stays so that a non-empty one is refused rather
-    than ignored."""
+    ``cast_params_before_use`` and the unread ``log_interval``."""
 
     model: ModelConfig
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
@@ -159,4 +162,6 @@ class TrainConfig:
     seed: int = 1234
     remat: str = "full"  # none | full | dots
     eval_interval: int = 100
+    checkpoint_interval: int = 500
     checkpoint_dir: str = ""
+    keep_checkpoints: int = 3

@@ -1,13 +1,15 @@
 """Composable training control plane: regulators -> one StepPlan per step
-(copy of ``repro/core/regulators.py:57-215, 390-531``, default kinds).
+(copy of ``repro/core/regulators.py:57-215, 287-531``).
 
 Each schedule is a ``Regulator``: a host-side state machine that reads the
 shared per-step :class:`StepTelemetry` and contributes to the
 :class:`StepPlan` (sequence-length bucket, batch size, LR, grad-clip
 scale) that the trainer executes.  ``seq_len`` and ``batch_size`` fold by
-min; the LR schedule sets the LR.  The kinds ``seqlen``, ``batch_warmup``
-and ``lr`` are ported; ``grad_noise_batch``, ``var_lr_throttle`` and
-``critical_batch`` are refused.  Pure Python and numpy.
+min; the LR schedule sets the LR and modifiers after it in the stack
+(:class:`VarianceLRThrottle`) multiply it.  The kinds ``seqlen``,
+``batch_warmup``, ``lr`` and ``var_lr_throttle`` are ported;
+``grad_noise_batch`` and ``critical_batch`` are refused.  Pure Python and
+numpy.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.core.batch_warmup import BatchWarmup
 from repro_torch.core.curriculum import SLWCurriculum, apply_seqlen
 from repro_torch.optim.schedule import lr_at
 
-NOT_PORTED = ("grad_noise_batch", "var_lr_throttle", "critical_batch")
+NOT_PORTED = ("grad_noise_batch", "critical_batch")
 
 
 @dataclass
@@ -156,6 +158,56 @@ class LRScheduleRegulator(Regulator):
         return plan
 
 
+class VarianceLRThrottle(Regulator):
+    """Warmup-free LR control (beyond the paper): back the LR off
+    multiplicatively while the Adam variance max spikes above ``gate`` x
+    its trailing mean (the paper's §3 spike precursor) and recover when
+    calm; the grad clip tightens by the same factor while throttled.
+
+    The gate here is the reference's scalar one: ``var_max > gate x
+    trailing`` backs off (``scale *= backoff``, never below ``floor``), a
+    calm step recovers (``scale *= recovery``, capped at 1), and
+    ``trailing = 0.9 trailing + 0.1 var_max``.  The reference's per-leaf
+    gate and its blame (``_observe_per_leaf``) need per-leaf telemetry,
+    which the port's :class:`StepTelemetry` does not carry yet, so the
+    scalar path is the whole behaviour.  The state keeps the reference's
+    keys, with ``leaf_trailing`` always ``{}`` and ``blamed`` ``""``, so
+    either package reads the other's :class:`ControllerState`."""
+
+    name = "var_lr_throttle"
+
+    def __init__(self, spec: RegulatorSpec):
+        self.spec = spec
+        self.scale = 1.0
+        self.trailing = 0.0
+
+    def plan(self, tele: StepTelemetry, plan: StepPlan) -> StepPlan:
+        plan.lr *= self.scale
+        plan.grad_clip_scale *= self.scale
+        return plan
+
+    def observe(self, tele: StepTelemetry, tokens_step: int) -> None:
+        v = tele.var_max
+        if not math.isfinite(v):
+            return
+        if self.trailing == 0.0:
+            self.trailing = v
+        spiking = v > self.spec.gate * self.trailing
+        self.trailing = 0.9 * self.trailing + 0.1 * v
+        if spiking:
+            self.scale = max(self.scale * self.spec.backoff, self.spec.floor)
+        else:
+            self.scale = min(self.scale * self.spec.recovery, 1.0)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"scale": self.scale, "trailing": self.trailing,
+                "leaf_trailing": {}, "blamed": "", "blamed_ratio": 0.0}
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        self.scale = float(d["scale"])
+        self.trailing = float(d["trailing"])
+
+
 class RegulatorStack:
     """Ordered regulators: ``plan`` before the step, ``apply`` the plan to
     the host batch, ``observe`` after."""
@@ -242,6 +294,8 @@ def build_stack(tc: TrainConfig, *, dp_size: int = 1,
                                            dp_size=dp_size))
         elif spec.kind == "lr":
             regs.append(LRScheduleRegulator(tc.optimizer))
+        elif spec.kind == "var_lr_throttle":
+            regs.append(VarianceLRThrottle(spec))
         elif spec.kind in NOT_PORTED:
             raise NotImplementedError(
                 f"regulator kind {spec.kind!r} is not ported yet")

@@ -1,18 +1,17 @@
 """Stability instrumentation of the paper's analysis (copy of
-``repro/core/stability.py:25-86``).
+``repro/core/stability.py:25-107``).
 
 * loss ratio: current-step loss / min previous loss; > 1.2 counts as a
   spike (Table 1).
 * Adam variance telemetry: l1 norm and max element of sqrt(v_t)
   (Fig. 1 c-f), plus the momentum l1 norm (A.3.2), reduced on the device.
-
-``pearson`` (Table 3) is not ported yet: the reference computes its
-p-value with ``jax.scipy``.
+* Pearson correlation between the loss-ratio series and the variance
+  series (Table 3), with the exact t-distribution p-value.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +42,15 @@ class LossRatioTracker:
                 "spike_frac": self.n_spikes / max(self.n_steps, 1),
                 "max_loss_ratio": self.max_ratio}
 
+    def state_dict(self) -> Dict[str, Any]:
+        return {"min_loss": self.min_loss, "max_ratio": self.max_ratio,
+                "n_steps": self.n_steps, "n_spikes": self.n_spikes,
+                "spike_threshold": self.spike_threshold}
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        for k, v in d.items():
+            setattr(self, k, v)
+
 
 def variance_stats(v_leaves: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
     """l1 norm and max element of sqrt(v_t) over all leaves (0-dim fp32
@@ -57,3 +65,28 @@ def variance_stats(v_leaves: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
 def momentum_stats(m_leaves: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {"mom_l1": torch.stack(torch._foreach_norm(
         [m.float() for m in m_leaves], 1)).sum()}
+
+
+def pearson(x: np.ndarray, y: np.ndarray) -> Tuple[float, float]:
+    """Pearson r and its two-sided p-value from the exact t distribution,
+    ``p = I_{df/(df+t^2)}(df/2, 1/2)``: the regularized incomplete beta of
+    ``scipy.special`` in float64 (the reference takes ``jax.scipy``'s in
+    float32, up to ~4e-5 relative off).  nan for fewer than 3 points or a
+    constant series; p = 0 when |r| = 1."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    n = x.size
+    if n < 3:
+        return float("nan"), float("nan")
+    xc = x - x.mean()
+    yc = y - y.mean()
+    denom = np.sqrt((xc * xc).sum() * (yc * yc).sum())
+    if denom == 0:
+        return float("nan"), float("nan")
+    r = float(np.clip((xc * yc).sum() / denom, -1.0, 1.0))
+    df = n - 2
+    if abs(r) >= 1.0:
+        return r, 0.0
+    t2 = df * r * r / (1.0 - r * r)
+    from scipy.special import betainc
+    return r, float(betainc(df / 2.0, 0.5, df / (df + t2)))

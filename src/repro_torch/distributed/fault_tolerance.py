@@ -1,18 +1,21 @@
-"""Drain-on-signal and the straggler watchdog (copy of
-``repro/distributed/fault_tolerance.py:30-111``), the two the trainer's
-default hooks use.
+"""Drain-on-signal, the straggler watchdog and restart supervision (copy
+of ``repro/distributed/fault_tolerance.py:30-170``).
 
-* ``DrainSignal`` latches SIGTERM/SIGINT; the loop polls ``should_drain``
-  and stops at the next step boundary.
+* ``DrainSignal`` latches SIGTERM/SIGINT; the loop polls ``should_drain``,
+  checkpoints and stops at the next step boundary.
 * ``StepWatchdog`` keeps a ring of step wall times and flags a straggler
   when a step exceeds ``factor`` x the rolling median.
+* ``TrainSupervisor`` wraps a resumable train function: on an exception
+  it records the failure, backs off by its ``RetryPolicy`` and calls the
+  function again with ``resume=True``, which restores the last valid
+  checkpoint.
 """
 from __future__ import annotations
 
 import signal
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -86,3 +89,58 @@ class StepWatchdog:
         return {"step_time_p50": float(np.median(d)),
                 "step_time_p95": float(np.percentile(d, 95)),
                 "stragglers": len(self.straggler_steps)}
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """How many times to retry and how long to wait before each retry."""
+
+    max_retries: int = 3
+    backoff_s: float = 0.0       # base sleep before retry 1 (0 = none)
+    backoff_factor: float = 2.0  # exponential growth per further retry
+    backoff_cap_s: float = 60.0  # ceiling on any single sleep
+
+    def delay(self, attempt: int) -> float:
+        """Sleep before retry ``attempt`` (1-based)."""
+        if self.backoff_s <= 0.0:
+            return 0.0
+        return min(self.backoff_s * self.backoff_factor ** (attempt - 1),
+                   self.backoff_cap_s)
+
+
+@dataclass
+class TrainSupervisor:
+    """Retry loop around a resumable train function.
+
+    ``run_fn(resume: bool) -> str`` must restore from the latest checkpoint
+    itself when ``resume`` is True.  Retries back off by ``policy`` (the
+    ``max_restarts`` / ``backoff_s`` fields seed a default one), and every
+    failure is recorded with its wall-clock time and attempt number in
+    ``failures``.
+    """
+    max_restarts: int = 3
+    backoff_s: float = 0.0
+    restarts: int = 0
+    failures: List[Dict] = field(default_factory=list)
+    policy: Optional[RetryPolicy] = None
+
+    def run(self, run_fn: Callable[[bool], str]) -> str:
+        policy = self.policy or RetryPolicy(max_retries=self.max_restarts,
+                                            backoff_s=self.backoff_s)
+        resume = False
+        while True:
+            try:
+                return run_fn(resume)
+            except Exception as e:  # noqa: BLE001 — supervisor boundary
+                self.restarts += 1
+                self.failures.append({
+                    "error": f"{type(e).__name__}: {e}",
+                    "time": time.time(),
+                    "attempt": self.restarts,
+                })
+                if self.restarts > policy.max_retries:
+                    raise
+                delay = policy.delay(self.restarts)
+                if delay:
+                    time.sleep(delay)
+                resume = True

@@ -10,20 +10,27 @@ Usable as a library (``train(tc, ...)``, ``Trainer``) and as a CLI:
       --reduced --device cpu --steps 12 --seq 64 --batch 4 --slw
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
       --reduced --device cpu --steps 12 --seq 64 --batch 4 --slw
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+      --steps 12 --seq 64 --batch 4 --slw --ckpt-dir /tmp/ck \\
+      --ckpt-interval 5 [--resume] [--var-lr-throttle]
 
 The loop is the paper's joint recipe: the regulator stack plans the step
 (seqlen bucket, batch size, LR, grad-clip scale) -> the full-length host
 batch is row-sliced and truncated/repacked -> the train step (loss, its
 gradient through the flash-attention, WKV-6 or SSD kernels, the AdamW
-chain) -> loss ratio and Adam-variance telemetry go back into the stack.  Eval, drain,
-the watchdog and telemetry recording are ``TrainerHook``s.
+chain) -> loss ratio and Adam-variance telemetry go back into the stack.
+Eval, checkpoints, drain, the watchdog and telemetry recording are
+``TrainerHook``s.
 
 The device defaults to CUDA and the run fails on a machine without one
 unless ``device="cpu"`` / ``--device cpu`` is given.  The initial weights
 are drawn by a generator on that device.  Training runs in fp32 with TF32
-off, so fp32 means fp32 on the card.  Checkpoints and
-``resume``, divergence recovery, fault injection and the GNS precursor are
-not ported yet: their options raise.
+off, so fp32 means fp32 on the card.  Checkpoints are the JAX package's
+format (``repro_torch.checkpoint``): the train state in the JAX layout plus
+the control plane's state, so a run resumes mid-warmup on the same
+schedule, from a checkpoint of either package; ``resume`` restores onto
+the trainer's device.  Divergence recovery, fault injection and the GNS
+precursor are not ported yet: their options raise.
 """
 from __future__ import annotations
 
@@ -38,11 +45,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import bridge
+from repro_torch.checkpoint import CheckpointManager, migrate_host_state
 from repro_torch.configs import get_arch, reduced as reduce_cfg
 from repro_torch.configs.base import (BatchWarmupConfig, OptimizerConfig,
-                                      SLWConfig, TrainConfig)
-from repro_torch.core.regulators import (RegulatorStack, StepPlan,
-                                         StepTelemetry, build_stack)
+                                      RegulatorSpec, SLWConfig, TrainConfig)
+from repro_torch.core.regulators import (ControllerState, RegulatorStack,
+                                         StepPlan, StepTelemetry, auto_specs,
+                                         build_stack)
 from repro_torch.core.stability import LossRatioTracker
 from repro_torch.data import DataPipeline, SyntheticCorpus
 from repro_torch.distributed.fault_tolerance import DrainSignal, StepWatchdog
@@ -71,6 +81,7 @@ class TrainResult:
     watchdog_summary: Dict[str, float] = field(default_factory=dict)
     # distinct batch shapes the loop ran (the reference's jit compiles)
     n_compiles: int = 0
+    restored_from_step: Optional[int] = None
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +213,24 @@ class EvalHook(TrainerHook):
                   f"lr {plan.lr:.2e}", flush=True)
 
 
+class CheckpointHook(TrainerHook):
+    """Periodic and final checkpoints (the drain path saves on its own).
+    The final one is skipped when the last periodic one holds the same
+    step: nothing has changed since, and the copy would briefly take the
+    disk of a fourth checkpoint."""
+
+    def on_step_end(self, tr, tele, plan, metrics) -> None:
+        if tr.stopping or tr.ckpt is None or not tr.tc.checkpoint_interval:
+            return
+        if tr.step % tr.tc.checkpoint_interval == 0:
+            tr.save_checkpoint()
+
+    def on_run_end(self, tr: "Trainer") -> None:
+        if tr.ckpt is not None and not tr.result.drained \
+                and tr.saved_step != tr.step:
+            tr.save_checkpoint()
+
+
 # ---------------------------------------------------------------------------
 # trainer
 # ---------------------------------------------------------------------------
@@ -210,10 +239,12 @@ class Trainer:
     """Host-side training control plane around the regulator stack.
 
     Owns the model and optimizer state on ``device``, the data pipeline,
-    the regulator stack and the loss-ratio tracker; eval, drain, the
-    watchdog and telemetry are hooks.  ``state`` may be replaced before
-    ``run`` (``repro_torch.bridge.train_state_from_numpy`` carries a
-    reference state over).
+    the regulator stack, the loss-ratio tracker and the checkpoint
+    manager; eval, checkpoint cadence, drain, the watchdog and telemetry
+    are hooks.  ``state`` may be replaced before ``run``
+    (``repro_torch.bridge.train_state_from_numpy`` carries a reference
+    state over).  ``fail_at_step`` raises before that step runs (the
+    fault-tolerance drills).
     """
 
     def __init__(self, tc: TrainConfig, *, dp_size: int = 1,
@@ -221,14 +252,11 @@ class Trainer:
                  drain: Optional[DrainSignal] = None,
                  callback: Optional[Callable[[int, Dict[str, float]],
                                              None]] = None,
-                 quiet: bool = True,
+                 fail_at_step: Optional[int] = None, quiet: bool = True,
                  hooks: Optional[List[TrainerHook]] = None,
                  device: str = "cuda"):
         """``hooks`` are appended after the default set (drain, watchdog,
-        telemetry, eval)."""
-        if tc.checkpoint_dir:
-            raise NotImplementedError("checkpoints (checkpoint_dir) are not "
-                                      "ported yet")
+        telemetry, eval, checkpoint)."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # fp32 means fp32: no TF32 in matmuls or convolutions
@@ -237,6 +265,7 @@ class Trainer:
         self.tc = tc
         self.dp_size = max(dp_size, 1)
         self.stop_on_nan = stop_on_nan
+        self.fail_at_step = fail_at_step
         cfg = tc.model
         self.model = model_zoo.build_model(cfg, remat=tc.remat)
         self.state = steps_lib.init_train_state(
@@ -250,6 +279,9 @@ class Trainer:
             warmup_steps_hint=tc.optimizer.warmup_steps)
         self.tracker = LossRatioTracker()
         self.watchdog = StepWatchdog()
+        self.ckpt = (CheckpointManager(tc.checkpoint_dir, tc.keep_checkpoints)
+                     if tc.checkpoint_dir else None)
+        self.saved_step: Optional[int] = None  # of this run's last save
         self.step_fn = steps_lib.make_train_step(self.model, tc.optimizer)
 
         self.result = TrainResult()
@@ -261,11 +293,51 @@ class Trainer:
         self._seen_shapes = set()
         self.hooks: List[TrainerHook] = [
             DrainHook(drain), WatchdogHook(), TelemetryHook(callback),
-            EvalHook(eval_batch=eval_batch, quiet=quiet)]
+            EvalHook(eval_batch=eval_batch, quiet=quiet), CheckpointHook()]
         self.hooks += list(hooks or [])
 
     def request_drain(self) -> None:
         self._drain_requested = True
+
+    # -- the control plane's state (the checkpoint's host payload) ----------
+    def controller_state(self) -> ControllerState:
+        return self.stack.controller_state(self.step, self.tokens_seen,
+                                           self.tracker.state_dict())
+
+    def load_controller_state(self, cs: ControllerState) -> None:
+        self.step = cs.step
+        self.tokens_seen = cs.tokens_seen
+        if cs.tracker:
+            self.tracker.load_state_dict(cs.tracker)
+        self.stack.load_controller_state(cs)
+
+    def save_checkpoint(self) -> None:
+        """The train state in the JAX layout and the controller dict, the
+        single source of truth for the host state."""
+        if self.ckpt is None:
+            return
+        self.ckpt.save(self.step,
+                       bridge.train_state_to_numpy(self.state, self.tc.model),
+                       {"controller": self.controller_state().to_host()})
+        self.saved_step = self.step
+
+    def resume(self) -> Optional[int]:
+        """Restore the newest valid checkpoint, if any, onto the trainer's
+        device.  Returns its step."""
+        if self.ckpt is None:
+            return None
+        got_step, tree, host = self.ckpt.restore_latest(
+            bridge.abstract_train_state(self.tc.model, self.tc.optimizer))
+        if got_step is None:
+            return None
+        self.state = None  # the fresh state's device memory goes first
+        self.state = bridge.train_state_from_numpy(
+            tree, self.tc.model, self.tc.optimizer, self.device)
+        host = migrate_host_state(host)
+        self.load_controller_state(ControllerState.from_host(
+            host["controller"]))
+        self.result.restored_from_step = got_step
+        return got_step
 
     def to_device(self, batch: Dict[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
@@ -322,8 +394,12 @@ class Trainer:
                 for h in self.hooks:
                     h.on_step_start(self)
                 if self._drain_requested:
+                    self.save_checkpoint()
                     self.result.drained = True
                     break
+                if (self.fail_at_step is not None
+                        and self.step == self.fail_at_step):
+                    raise RuntimeError(f"injected failure at step {self.step}")
                 tele, plan, metrics = self.run_step()
                 if not math.isfinite(tele.loss):
                     self.result.diverged = True
@@ -333,6 +409,7 @@ class Trainer:
                 if self.stopping:
                     break
         except BaseException:
+            # the crash path: resource cleanup only, no checkpoint
             for h in self.hooks:
                 h.close()
             raise
@@ -350,15 +427,18 @@ def train(tc: TrainConfig, max_steps: Optional[int] = None,
           eval_batch: int = 8, resume: bool = False, stop_on_nan: bool = True,
           drain: Optional[DrainSignal] = None,
           callback: Optional[Callable[[int, Dict[str, float]], None]] = None,
-          quiet: bool = True, dp_size: int = 1,
-          hooks: Optional[List[TrainerHook]] = None,
+          fail_at_step: Optional[int] = None, quiet: bool = True,
+          dp_size: int = 1, hooks: Optional[List[TrainerHook]] = None,
           device: str = "cuda") -> TrainResult:
-    """Run the training loop on ``device``; returns full telemetry."""
-    if resume:
-        raise NotImplementedError("resume (checkpoints) is not ported yet")
+    """Run the training loop on ``device``; returns full telemetry.
+    ``resume`` restores the newest valid checkpoint of
+    ``tc.checkpoint_dir`` first; ``fail_at_step`` injects a crash."""
     trainer = Trainer(tc, dp_size=dp_size, eval_batch=eval_batch,
                       stop_on_nan=stop_on_nan, drain=drain, callback=callback,
-                      quiet=quiet, hooks=hooks, device=device)
+                      fail_at_step=fail_at_step, quiet=quiet, hooks=hooks,
+                      device=device)
+    if resume:
+        trainer.resume()
     return trainer.run(max_steps=max_steps)
 
 
@@ -370,10 +450,9 @@ def train(tc: TrainConfig, max_steps: Optional[int] = None,
 # but the default raises
 NOT_PORTED = {"optimizer": "adamw", "agc": 0.0, "per_leaf_telemetry": False,
               "grad_noise_batch": False, "gns": False, "gns_batch": False,
-              "var_lr_throttle": False, "ckpt_dir": "", "resume": False,
               "recover": False, "inject_faults": "", "gns_shards": 4,
               "gns_precursor_window": 12, "gns_headroom": 2.0,
-              "ckpt_interval": 100, "max_rollbacks": 3, "inject_seed": 0}
+              "max_rollbacks": 3, "inject_seed": 0}
 
 
 def build_config(args) -> TrainConfig:
@@ -399,10 +478,18 @@ def build_config(args) -> TrainConfig:
     bw = BatchWarmupConfig(enabled=args.batch_warmup,
                            start_batch=max(args.batch // 8, 1),
                            warmup_tokens=total_tokens // 20)
-    return TrainConfig(model=cfg, optimizer=opt, slw=slw, batch_warmup=bw,
-                       seq_len=args.seq, global_batch=args.batch,
-                       seed=args.seed, remat=args.remat,
-                       eval_interval=args.eval_interval)
+    tc = TrainConfig(model=cfg, optimizer=opt, slw=slw, batch_warmup=bw,
+                     seq_len=args.seq, global_batch=args.batch,
+                     seed=args.seed, remat=args.remat,
+                     eval_interval=args.eval_interval,
+                     checkpoint_interval=args.ckpt_interval,
+                     checkpoint_dir=args.ckpt_dir)
+    # the throttle multiplies the scheduled LR, so it comes after the
+    # auto-derived schedules
+    if args.var_lr_throttle:
+        tc = dataclasses.replace(tc, regulators=auto_specs(tc) + (
+            RegulatorSpec(kind="var_lr_throttle"),))
+    return tc
 
 
 def main(argv=None) -> int:
@@ -452,7 +539,7 @@ def main(argv=None) -> int:
     p.add_argument("--gns-headroom", type=float, default=2.0,
                    help="not ported yet")
     p.add_argument("--var-lr-throttle", action="store_true",
-                   help="not ported yet")
+                   help="LR backoff while the Adam variance max spikes")
     p.add_argument("--dp-size", type=int, default=1,
                    help="data-parallel size for batch quantization")
     p.add_argument("--remat", default="none",
@@ -460,10 +547,9 @@ def main(argv=None) -> int:
                    help='"dots" is not ported yet')
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--eval-interval", type=int, default=50)
-    p.add_argument("--ckpt-dir", default="", help="not ported yet")
-    p.add_argument("--ckpt-interval", type=int, default=100,
-                   help="not ported yet")
-    p.add_argument("--resume", action="store_true", help="not ported yet")
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-interval", type=int, default=100)
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--metrics-jsonl", default="",
                    help="append per-step StepPlan/StepTelemetry rows to "
                         "this JSONL file")
@@ -479,10 +565,12 @@ def main(argv=None) -> int:
     resolve_device(args.device)  # before the drain handlers are installed
     hooks = ([MetricsJsonlHook(args.metrics_jsonl)]
              if args.metrics_jsonl else None)
-    res = train(tc, drain=DrainSignal(), quiet=False, dp_size=args.dp_size,
-                hooks=hooks, device=args.device)
+    res = train(tc, resume=args.resume, drain=DrainSignal(), quiet=False,
+                dp_size=args.dp_size, hooks=hooks, device=args.device)
     print(f"\ndone: steps={res.steps} tokens={res.tokens} "
           f"diverged={res.diverged} compiles={res.n_compiles}")
+    if res.restored_from_step is not None:
+        print(f"resumed from the step-{res.restored_from_step} checkpoint")
     print("stability:", res.tracker_summary)
     print("watchdog:", res.watchdog_summary)
     return 0 if not res.diverged else 1

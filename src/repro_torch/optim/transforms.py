@@ -1,5 +1,5 @@
 """The default optimizer chain: optax-shaped gradient transforms on torch
-tensors (copy of ``repro/optim/transforms.py:46-177, 337-377, 411-461``).
+tensors (copy of ``repro/optim/transforms.py:46-177, 337-377, 411-470``).
 
 A :class:`GradientTransform` is an ``init(params) -> state`` /
 ``update(updates, state, params, hyper) -> (updates, state, telemetry)``
@@ -216,3 +216,14 @@ def build_optimizer(cfg: OptimizerConfig) -> GradientTransform:
     return chain(clip_global_norm(cfg.grad_clip), scale_by_adam(cfg),
                  add_decayed_weights(cfg.weight_decay, cfg.decay_mask),
                  scale_by_lr())
+
+
+def migrate_opt_state(opt: Dict[str, Any]) -> Dict[str, Any]:
+    """Upgrade a legacy in-memory ``{"m", "v", "count"}`` opt state into the
+    default chain's format (``{"clip": {}, "adam": {...}, "decay": {},
+    "lr": {}}``).  Already-migrated states pass through unchanged."""
+    if "m" in opt and "v" in opt and "count" in opt:
+        return {"clip": {}, "adam": {"m": opt["m"], "v": opt["v"],
+                                     "count": opt["count"]},
+                "decay": {}, "lr": {}}
+    return opt

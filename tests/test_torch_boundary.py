@@ -1,9 +1,11 @@
 """The port's boundary: no JAX, no ``repro``, CUDA by default, no silent
 fallback, and no ported-looking option that quietly does nothing.
 
-* With ``jax`` blocked, every ``repro_torch`` module and ``chip_smoke``
-  import, and none of them pulls in ``repro`` or a ``repro.*`` module.
-* The entry points default to CUDA and raise where there is none.
+* With ``jax`` blocked, every ``repro_torch`` module, ``chip_smoke`` and
+  the port's examples (``examples/torch_*.py``) import, and none of them
+  pulls in ``repro`` or a ``repro.*`` module.
+* The entry points (the examples too) default to CUDA and raise where
+  there is none.
 * On CPU tensors the kernel wrappers (flash attention, flash decode,
   WKV-6, SSD) run their plain versions and count no launch.
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
@@ -20,6 +22,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -32,6 +35,10 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util
+for path in {examples!r}:
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
@@ -40,7 +47,11 @@ assert "torch" in sys.modules
 
 
 def test_port_imports_without_jax_or_repro():
-    code = _IMPORT_ALL.format(src=str(SRC), root=str(ROOT))
+    assert [p.name for p in EXAMPLES] == [
+        "torch_quickstart.py", "torch_stability_study.py",
+        "torch_tuning_strategy.py"]
+    code = _IMPORT_ALL.format(src=str(SRC), root=str(ROOT),
+                              examples=[str(p) for p in EXAMPLES])
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=ROOT)
     assert r.returncode == 0, r.stderr
@@ -71,7 +82,8 @@ def test_zamba_modules_import_without_jax():
 
 
 def test_no_jax_or_repro_import_in_sources():
-    files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (list((SRC / "repro_torch").rglob("*.py"))
+             + [ROOT / "chip_smoke.py"] + EXAMPLES)
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
@@ -145,12 +157,36 @@ def test_zamba_clis_default_to_cuda(monkeypatch, cli):
                         "--batch", "2", "--seq", "16"])
 
 
+def _example(path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=[p.stem for p in EXAMPLES])
+def test_examples_default_to_cuda(monkeypatch, path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _example(path).main([])
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_stability_study"])
+def test_examples_run_on_the_cpu_when_asked(capsys, name):
+    _example(ROOT / "examples" / f"{name}.py").main(
+        ["--device", "cpu", "--steps", "4"])
+    out = capsys.readouterr().out
+    assert ("stability:" in out if name == "torch_quickstart"
+            else "aggressive + throttle" in out)
+
+
 def test_train_cli_refuses_what_is_not_ported():
     from repro_torch.launch import train
-    for flags in (["--recover"], ["--ckpt-dir", "x"], ["--gns"],
+    for flags in (["--recover"], ["--gns"],
                   ["--optimizer", "sm3"], ["--remat", "dots"],
                   ["--gns-shards", "2"], ["--gns-precursor-window", "4"],
-                  ["--gns-headroom", "3"], ["--ckpt-interval", "10"],
+                  ["--gns-headroom", "3"],
                   ["--max-rollbacks", "1"], ["--inject-seed", "7"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             train.main(["--reduced", "--device", "cpu", "--steps", "1",

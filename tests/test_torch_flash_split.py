@@ -43,6 +43,16 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd,
 F32, BF16 = torch.float32, torch.bfloat16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The emulation runs many small tensor ops; with one intra-op thread
+    they stay cheap where test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     """fp32 rounded to TF32 (10 stored mantissa bits) to nearest, ties away
     from zero, by masking the bits as ``cvt.rna.tf32.f32`` rounds them."""

@@ -146,7 +146,7 @@ def test_controller_state_round_trip_resumes_the_plans():
 def test_refused_regulator_kinds_raise():
     tc = dataclasses.replace(
         _train_configs(tbase, "tiny", "linear", "truncate", False),
-        regulators=(tbase.RegulatorSpec(kind="var_lr_throttle"),))
+        regulators=(tbase.RegulatorSpec(kind="grad_noise_batch"),))
     with pytest.raises(NotImplementedError, match="not ported"):
         tregulators.build_stack(tc)
 
