@@ -46,10 +46,18 @@ weights from a seed:
   15 under a ``TrainSupervisor``, the resume from the step-10 checkpoint
   on the card (steps 11-30 against the uninterrupted arm) and a corrupted
   newest checkpoint quarantined in favour of the one before;
+* per-leaf telemetry and the gradient noise scale on GPT-2 117M at full
+  width (phase ``telemetry_gns``): the joint recipe with per-leaf
+  telemetry and the GNS step (4 emulated shards, the direction sketch
+  and the precursor), the same under the ``critical_batch`` regulator
+  from 2 rows, and SM3 and Shampoo; the reference's 16 labels, the
+  per-leaf vectors recomposing the scalars, the sharded gradient against
+  the single pass, one GNS step against the flash kernels' plain
+  versions, and the launch counts;
 * RWKV-6: the WKV-6 forward and backward kernels against their plain
   versions (and the backward against autograd through the plain forward)
-  at every shape the RWKV paths give them, then full-depth, full-width
-  rwkv6-7b served from 8 slots (launch counts, greedy streams against the
+  at every shape the RWKV paths give them, then full-width rwkv6-7b cut
+  to 16 of its 32 layers served from 8 slots (launch counts, greedy streams against the
   plain reference backend, the router with a paged replica and a
   migration each way), and rwkv6-7b at full width cut to 4 layers trained
   for 20 SLW steps (finite losses, the plans of ``predict_trajectory``,
@@ -61,8 +69,8 @@ weights from a seed:
   and backward kernels against their plain versions (the backward through
   the autograd Function's reductions, against the plain reverse scan and
   against autograd through the plain forward) at every shape the zamba
-  paths give them, cum past -1000 included; then full-depth, full-width
-  zamba2-2.7b served from 8 slots (launch counts, greedy streams against
+  paths give them, cum past -1000 included; then full-width zamba2-2.7b
+  cut to 18 of its 54 layers served from 8 slots (launch counts, greedy streams against
   the plain reference backends, the router with a replica whose shared
   attention KV really lives in pages, and a migration each way), and
   trained at full depth with remat "full" for 20 SLW steps (finite
@@ -1378,7 +1386,8 @@ def phase_train(dev: dict, checked: set) -> dict:
                               "device_idle_share": 1 - busy / wall,
                               "top_kernels_ms": top,
                               "flash_kernels_ms": fa_ms})
-    return {"init": init, "result": res, "launches": launches}
+    return {"init": init, "result": res, "launches": launches,
+            "tokens_per_s": full_tokens / sum(full_s)}
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -1776,6 +1785,297 @@ def phase_checkpoint(dev: dict, paper_out: dict, checked: set) -> dict:
     return launches
 
 
+# phase telemetry_gns: per-leaf telemetry, the GNS step and the optimizer
+# extras at full gpt2-117m width on train_config()'s joint recipe
+GNS_STEPS, OPT_STEPS, SHAMPOO_INTERVAL = 30, 10, 3
+GNS_SHARDS, GNS_WINDOW, GNS_DIM, GNS_MIN_BATCH = 4, 12, 16, 2
+# the reference's labels of gpt2-117m (repro.core.telemetry.param_labels;
+# tests/test_torch_telemetry.py holds the port's equal to them)
+GPT2_LABELS = (
+    "embed", "final_norm/bias", "final_norm/scale", "layers/attn/wk",
+    "layers/attn/wo", "layers/attn/wq", "layers/attn/wv", "layers/ln1/bias",
+    "layers/ln1/scale", "layers/ln2/bias", "layers/ln2/scale",
+    "layers/mlp/b_down", "layers/mlp/b_up", "layers/mlp/w_down",
+    "layers/mlp/w_up", "pos_embed")
+# fixed before the first run: the per-leaf vectors reduce the scalars'
+# own sums per group, so they recompose them to fp32 rounding
+GNS_SUM_RTOL = 1e-5
+# fixed before the first run: the sharded step's full-batch gradient
+# against the single pass, leaf by leaf within this x max |single-pass
+# leaf| (fp32, 12 layers, token-weighted sums in another order), as
+# GRAD_RTOL holds flash against plain attention
+GNS_GRAD_RTOL = 1e-4
+# fixed before the first run: one GNS step on the flash kernels against
+# the same step on their plain versions.  The per-leaf vectors and the
+# pair are sums of squares, norms and maxima of gradients that agree to
+# GRAD_RTOL of a leaf's largest entry, dominated by the large entries:
+# within GNS_PLAIN_RTOL relative.  The sketch's buckets are signed sums
+# that cancel: within GNS_SKETCH_RTOL of each row's largest entry.
+GNS_PLAIN_RTOL = 1e-4
+GNS_SKETCH_RTOL = 1e-3
+
+
+def telemetry_arms() -> dict:
+    """name -> (TrainConfig, steps) of phase ``telemetry_gns``: the joint
+    recipe of train_config() with per-leaf telemetry and GNS (4 shards,
+    precursor window 12, sketch dim 16); the same with the critical_batch
+    regulator from 2 rows; and SM3 and Shampoo (refresh every 3 steps)
+    with per-leaf telemetry, 10 steps, one eval each."""
+    from repro_torch.configs import GNSConfig, RegulatorSpec
+    from repro_torch.core.regulators import auto_specs
+    base = train_config()
+    per_leaf = dataclasses.replace(base.optimizer, telemetry_level="per_leaf")
+    gns = GNSConfig(enabled=True, shards=GNS_SHARDS,
+                    precursor_window=GNS_WINDOW, precursor_dim=GNS_DIM,
+                    min_batch=GNS_MIN_BATCH)
+    arm = dataclasses.replace(base, optimizer=per_leaf, gns=gns)
+    short = lambda opt: dataclasses.replace(
+        base, optimizer=opt, eval_interval=OPT_STEPS)
+    return {
+        "gns": (arm, GNS_STEPS),
+        "gns_batch": (dataclasses.replace(arm, regulators=auto_specs(arm) + (
+            RegulatorSpec(kind="critical_batch"),)), GNS_STEPS),
+        "sm3": (short(dataclasses.replace(per_leaf, optimizer="sm3")),
+                OPT_STEPS),
+        "shampoo": (short(dataclasses.replace(
+            per_leaf, optimizer="shampoo",
+            shampoo_interval=SHAMPOO_INTERVAL)), OPT_STEPS)}
+
+
+def _shard_rows(gns, b: int) -> int:
+    """Rows of one forward: a shard's under GNS, else the batch's."""
+    from repro_torch.launch.steps import _gns_shard_count
+    k = _gns_shard_count(gns, b) if gns.enabled else 1
+    return b // k
+
+
+def telemetry_shapes() -> set:
+    """Every (rows, seq) phase ``telemetry_gns`` can run a forward at:
+    each planned step's shard and the evals.  The gns_batch arm's batch
+    follows the measured noise scale, capped by a batch warmup that
+    follows its own tokens, so any batch from GNS_MIN_BATCH to the full
+    one at each planned seq len (SLW is open loop)."""
+    from repro_torch.core.regulators import predict_trajectory
+    arms = telemetry_arms()
+    shapes = {(EVAL_BATCH, S_TRAIN)}
+    for name, (tc, steps) in arms.items():
+        plans = predict_trajectory(arms["gns"][0] if name == "gns_batch"
+                                   else tc, steps)
+        for p in plans:
+            batches = (range(GNS_MIN_BATCH, tc.global_batch + 1)
+                       if name == "gns_batch" else (p.batch_size,))
+            shapes |= {(_shard_rows(tc.gns, b), p.seq_len) for b in batches}
+    return shapes
+
+
+def _opt_bytes(opt) -> int:
+    from repro_torch.optim.transforms import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(opt)
+               if t is not None)
+
+
+def _plain_flash():
+    """A patch of the flash Function's module onto the kernels' plain
+    versions."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import kernel, ops
+    return mock.patch.multiple(
+        ops, flash_attention_fwd=kernel.flash_attention_fwd_plain,
+        flash_attention_bwd=kernel.flash_attention_bwd_plain)
+
+
+def _gns_checks(tc) -> dict:
+    """On one 16 x 1024 batch from fresh weights: the sharded path's
+    full-batch gradient against the single pass, and one GNS step on the
+    flash kernels against the same step on their plain versions."""
+    from repro_torch.core.telemetry import leaf_groups, split_metrics
+    from repro_torch.launch.steps import make_train_step, sharded_grads
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.transforms import tree_leaves
+    tr = Trainer(tc, eval_batch=EVAL_BATCH, device="cuda")
+    batch = tr.to_device(tr.pipeline.batch_at(0))
+    params = tr.state["params"]
+    names = _leaf_names(params)
+    grads, _, _ = sharded_grads(tr.model, params, batch, GNS_SHARDS)
+    single = _grads(tr.model, params, batch)
+    grad_rel = {}
+    for name, g, s in zip(names, grads, single):
+        grad_rel[name] = (g - s).abs().max().item() / s.abs().max().item()
+        check(grad_rel[name] <= GNS_GRAD_RTOL,
+              f"sharded gradient {name}: {grad_rel[name]}")
+    del grads, single
+    init = _clone_state(tr.state)
+    step = make_train_step(tr.model, tc.optimizer, gns=tc.gns)
+    lr, clip = float(np.float32(6e-4)), 1.0
+    _, out = step(_clone_state(init), batch, lr, clip)
+    flash_s, flash_v = split_metrics(out)
+    with _plain_flash():
+        _, out = make_train_step(tr.model, tc.optimizer, gns=tc.gns)(
+            _clone_state(init), batch, lr, clip)
+    plain_s, plain_v = split_metrics(out)
+    del out, init, tr, step
+    plain_rel = {}
+    for k in ("gns_small_sq", "gns_big_sq", "grad_norm", "var_max", "loss"):
+        plain_rel[k] = abs(flash_s[k] - plain_s[k]) / abs(plain_s[k])
+        check(plain_rel[k] <= GNS_PLAIN_RTOL, f"plain {k}: {plain_rel[k]}")
+    for k, ref in plain_v.items():
+        err = np.abs(flash_v[k] - ref)
+        if k == "gns_sketch":
+            rel = float(np.max(err.max(1) / np.abs(ref).max(1)))
+            check(rel <= GNS_SKETCH_RTOL, f"plain sketch: {rel}")
+        else:  # a zero-initialized bias has a param norm of 0 on both
+            rel = float(np.max(err / np.maximum(np.abs(ref), 1e-30)))
+            check(rel <= GNS_PLAIN_RTOL, f"plain leaf {k}: {rel}")
+        plain_rel[f"leaf_{k}"] = rel
+    return {"sharded_grad_max_rel": max(grad_rel.values()),
+            "plain_max_rel": plain_rel,
+            "labels": leaf_groups(params).labels}
+
+
+def phase_telemetry_gns(dev: dict, checked: set, train_tokens_s: float
+                        ) -> dict:
+    """The four arms of :func:`telemetry_arms` through the Trainer on the
+    flash kernels, with the checks of :func:`_gns_checks` first."""
+    from repro_torch.core.regulators import predict_trajectory
+    from repro_torch.gns import GNSEstimator
+    from repro_torch.launch.train import Trainer, TrainerHook
+
+    held = torch.cuda.memory_allocated()
+    arms = telemetry_arms()
+    checks = _gns_checks(arms["gns"][0])
+    check(checks["labels"] == GPT2_LABELS, f"labels {checks['labels']}")
+    torch.cuda.empty_cache()
+
+    class Record(TrainerHook):
+        def __init__(self):
+            self.rows = []
+
+        def on_step_end(self, tr, tele, plan, metrics):
+            crit = (tr.stack["critical_batch"] if "critical_batch"
+                    in tr.stack else None)
+            self.rows.append((tele, plan, None if crit is None else (
+                crit.est.b_noise, crit.batch)))
+
+    kernels = _fa_kernels()
+    n_layers = train_config().model.n_layers
+    total = {name: 0 for name in kernels}
+    out = {}
+    for name, (tc, steps) in arms.items():
+        for f in kernels.values():
+            f.launches = 0
+        rec = Record()
+        tr = Trainer(tc, eval_batch=EVAL_BATCH, hooks=[rec], device="cuda")
+        res = tr.run(max_steps=steps)
+        launches = {k: f.launches for k, f in kernels.items()}
+        for k in total:
+            total[k] += launches[k]
+        check(res.steps == steps and not res.diverged, f"{name}: {res.steps}")
+        check(all(math.isfinite(x) for x in res.loss_history),
+              f"{name}: finite losses")
+        check(len(res.val_ppl_history) == 1, f"{name}: one eval")
+        check(tr.leaf_labels == GPT2_LABELS, f"{name}: labels")
+        shapes = {(_shard_rows(tc.gns, b), s) for b, s in zip(
+            res.batch_history, res.seqlen_history)} | {(EVAL_BATCH, S_TRAIN)}
+        check(shapes <= checked, f"{name}: shapes {shapes - checked}")
+        # each forward is one launch of each kernel a layer: k shards a
+        # GNS step, one pass otherwise, and the eval's forward
+        passes = sum(b // _shard_rows(tc.gns, b) for b in res.batch_history)
+        want = {k: n_layers * passes for k in kernels}
+        want["flash_attention_fwd"] += n_layers
+        check(launches == want, f"{name}: launches {launches} != {want}")
+        plans = [(p.seq_len, p.batch_size, p.lr)
+                 for p in predict_trajectory(tc, steps)]
+        ran = list(zip(res.seqlen_history, res.batch_history,
+                       res.lr_history))
+        if name == "gns_batch":
+            # the seq lens are the open-loop plan's; the batch starts at
+            # GNS_MIN_BATCH, never shrinks and stays under the full one
+            check(res.seqlen_history == [s for s, _, _ in plans],
+                  f"{name}: seq lens")
+            bs = res.batch_history
+            check(bs[0] == GNS_MIN_BATCH and all(
+                b1 <= b2 <= tc.global_batch for b1, b2 in zip(bs, bs[1:])),
+                f"{name}: batches {bs}")
+        else:
+            check(ran == plans, f"{name}: the executed plans are "
+                  "predict_trajectory's")
+        pairs = 0
+        for tele, _, _ in rec.rows:
+            pl = tele.per_leaf
+            g = float(np.sqrt(np.sum(np.square(
+                pl["grad_norm"].astype(np.float64)))))
+            check(abs(g - tele.grad_norm) <= GNS_SUM_RTOL * tele.grad_norm,
+                  f"{name}: sqrt(sum leaf_grad_norm^2) {g} != "
+                  f"{tele.grad_norm}")
+            if math.isfinite(tele.gns_b_small):
+                pairs += 1
+                for k in ("gns_small_sq", "gns_big_sq"):
+                    s = float(np.sum(pl[k].astype(np.float64)))
+                    ref = getattr(tele, k)
+                    check(abs(s - ref) <= GNS_SUM_RTOL * ref,
+                          f"{name}: per-leaf {k} sums to {s} != {ref}")
+        durations = tr.watchdog.durations
+        full = [i for i, s in enumerate(res.seqlen_history) if s == S_TRAIN]
+        tokens_s = (sum(res.batch_history[i] * S_TRAIN for i in full)
+                    / sum(durations[i] for i in full)) if full else None
+        big = sorted(range(len(GPT2_LABELS)), key=lambda i: -tr_numel(
+            tr.state["params"], GPT2_LABELS[i]))[:4]
+        first, last = rec.rows[0][0].per_leaf, rec.rows[-1][0].per_leaf
+        row = {"steps": res.steps, "tokens": res.tokens,
+               "tokens_per_s_full_length": tokens_s,
+               "val_ppl": res.val_ppl_history,
+               "first_loss": res.loss_history[0],
+               "last_loss": res.loss_history[-1],
+               "batches": res.batch_history, "gns_pairs": pairs,
+               "var_max_largest_groups": {
+                   GPT2_LABELS[i]: [float(first["var_max"][i]),
+                                    float(last["var_max"][i])]
+                   for i in big},
+               "precursor_events": res.precursor_events,
+               "opt_state_bytes": _opt_bytes(tr.state["opt"]),
+               "launches": launches, "wall_s": res.wall_time_s}
+        if tc.gns.enabled:
+            est = GNSEstimator(tc.gns.ema_window, tc.gns.warmup_obs)
+            traj = []
+            for tele, _, crit in rec.rows:
+                if math.isfinite(tele.gns_b_small):
+                    est.update(tele.per_leaf["gns_small_sq"],
+                               tele.per_leaf["gns_big_sq"],
+                               tele.gns_b_small, tele.gns_b_big)
+                traj.append(est.b_noise if crit is None else crit[0])
+            row["b_noise"] = traj
+        if name == "shampoo":
+            # the refresh runs at Adam counts 1, 4, 7, 10: steps 0, 3, 6, 9
+            refresh = [durations[i] for i in range(0, steps,
+                                                   SHAMPOO_INTERVAL)]
+            rest = [durations[i] for i in range(steps)
+                    if i % SHAMPOO_INTERVAL]
+            row.update(step_s=list(durations), refresh_ms=(
+                float(np.median(refresh)) - float(np.median(rest))) * 1e3)
+        out[name] = row
+        del tr, rec
+        torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    check(left < 2**26, f"phase telemetry_gns left {left} bytes allocated")
+    emit("telemetry_gns", card=dev["nvidia_smi"], labels=len(GPT2_LABELS),
+         **{k: v for k, v in checks.items() if k != "labels"},
+         train_tokens_per_s_full_length=train_tokens_s,
+         sm3_vs_adamw_state_bytes=[out["sm3"]["opt_state_bytes"],
+                                   out["gns"]["opt_state_bytes"]],
+         arms=out, launches=total)
+    return total
+
+
+def tr_numel(params, label: str) -> int:
+    """Elements of the group ``label`` of a params tree."""
+    from repro_torch.core.telemetry import leaf_groups
+    from repro_torch.optim.transforms import tree_leaves
+    groups, leaves = leaf_groups(params), tree_leaves(params)
+    return sum(leaves[i].numel()
+               for i in groups.members[groups.labels.index(label)])
+
+
 # gpt2-117m in bf16: one loss and backward through the flash kernels'
 # bf16 instances, against the blockwise backend on the same bf16 params
 BF16_B, BF16_S = 8, 512
@@ -1926,6 +2226,11 @@ RWKV_H, RWKV_D, RWKV_CHUNK = 64, 64, 64  # rwkv6-7b: 64 heads of 64
 # sequences of 1024, SLW linear from 8 over 12 steps, batch warmup from 4,
 # 20 steps, one eval of 8 sequences
 RWKV_LAYERS, RWKV_B, RWKV_STEPS, RWKV_EVAL = 4, 8, 20, 8
+# serving: rwkv6-7b at full width cut to 16 of its 32 layers.  The serving
+# phases are host-bound (one step issues every layer's kernels) and took
+# 112-149 s at full depth, the most of any phase and the most varying
+# between machines; the depth cut keeps the script inside its time limit
+RWKV_SERVE_LAYERS = 16
 # the kernels against their plain versions, fp32: each output within this
 # fraction of the plain output's largest entry (fixed before the first run:
 # fp32 sums over up to 64 keys and 64 channels in another order)
@@ -2248,9 +2553,9 @@ def _serve_model(model, params, reqs, **kw) -> dict:
 
 
 def phase_engine_rwkv(dev: dict, fwd_checked: set) -> dict:
-    """Serves full-depth, full-width rwkv6-7b (fp32, weights from a CUDA
-    generator seeded with SEED) in 8 slots: 16 requests from
-    ``make_requests``, fcfs.  Checks the launch counts (wkv6_fwd 32 x
+    """Serves rwkv6-7b at full width, RWKV_SERVE_LAYERS deep (fp32, weights
+    from a CUDA generator seeded with SEED) in 8 slots: 16 requests from
+    ``make_requests``, fcfs.  Checks the launch counts (wkv6_fwd layers x
     prefill calls, no other kernel), the greedy streams against the same
     engine at rwkv_backend="reference", and serves the first 8 requests
     once more through the router (a paged and a dense replica) and moves
@@ -2259,7 +2564,7 @@ def phase_engine_rwkv(dev: dict, fwd_checked: set) -> dict:
     from repro_torch.launch.serve import make_requests, scheduler_config
     from repro_torch.models import model_zoo
     from repro_torch.serve import Replica, Router, prefill_split
-    cfg = get_arch("rwkv6-7b")
+    cfg = get_arch("rwkv6-7b").replace(n_layers=RWKV_SERVE_LAYERS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -2656,6 +2961,10 @@ SSD_H, SSD_P, SSD_N, SSD_CHUNK = 80, 64, 64, 128  # zamba2-2.7b's SSD
 # 8 of sequences of 1024, SLW linear from 8 over 12 steps, batch warmup
 # from 4, 20 steps, one eval of 8 sequences
 ZAMBA_B, ZAMBA_STEPS, ZAMBA_EVAL = 8, 20, 8
+# serving: zamba2-2.7b at full width cut to 18 of its 54 Mamba-2 layers (3
+# of its 9 shared-block groups), for the same reason as RWKV_SERVE_LAYERS
+# (140-189 s at full depth)
+ZAMBA_SERVE_LAYERS = 18
 # the SSD kernels against their plain versions, fp32: each output within
 # this fraction of the plain output's largest entry (fixed before the first
 # run: fp32 sums over up to 128 rows and 64 channels in another order)
@@ -2887,11 +3196,12 @@ def phase_ssd_bwd(train_shapes) -> tuple:
 
 
 def _zamba_weights():
-    """zamba2-2.7b at full depth and width, fp32 weights drawn on the card
-    from a CUDA generator seeded with SEED, and the seconds that took."""
+    """zamba2-2.7b at full width, ZAMBA_SERVE_LAYERS deep, fp32 weights
+    drawn on the card from a CUDA generator seeded with SEED, and the
+    seconds that took."""
     from repro_torch.configs import get_arch
     from repro_torch.models import model_zoo
-    cfg = get_arch("zamba2-2.7b")
+    cfg = get_arch("zamba2-2.7b").replace(n_layers=ZAMBA_SERVE_LAYERS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -2910,11 +3220,11 @@ def _replay_steps(reqs, ladder) -> int:
 
 def phase_engine_zamba(dev: dict, fwd_checked: set, fd_checked: set,
                        pd_checked: set) -> dict:
-    """Serves full-depth, full-width zamba2-2.7b (fp32, weights from a CUDA
-    generator seeded with SEED) in 8 slots of 576: 16 requests from
-    ``make_requests``, fcfs.  Checks the launch counts (ssd_fwd 54 x
-    prefill calls; flash_decode_fwd 9 x (fused + replay steps); no other
-    kernel), the greedy streams against the same engine at
+    """Serves zamba2-2.7b at full width, ZAMBA_SERVE_LAYERS deep (fp32,
+    weights from a CUDA generator seeded with SEED) in 8 slots of 576: 16
+    requests from ``make_requests``, fcfs.  Checks the launch counts
+    (ssd_fwd layers x prefill calls; flash_decode_fwd groups x (fused +
+    replay steps); no other kernel), the greedy streams against the same engine at
     ssm_backend="reference", decode_backend="reference", and serves the
     first 4 requests once more through the router (a paged replica, whose
     shared-block KV lives in pages, and a dense one) and moves one request
@@ -3261,11 +3571,12 @@ def main() -> int:
     from repro_torch.core.regulators import predict_trajectory
     train_shapes = {(p.batch_size, p.seq_len) for p in predict_trajectory(
         train_config(), TRAIN_STEPS)} | {(EVAL_BATCH, S_TRAIN)}
-    train_shapes |= paper_shapes()
+    train_shapes |= paper_shapes() | telemetry_shapes()
     bwd_timing, bwd_checked = phase_flash_attention_bwd(train_shapes)
     train = phase_train(dev, bwd_checked)
     phase_train_parity(train)
     train_launches = train["launches"]
+    train_tokens_s = train["tokens_per_s"]
     del train
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -3275,10 +3586,12 @@ def main() -> int:
     paper_launches = paper_out["launches"]
     del paper_out
     torch.cuda.empty_cache()
-    # every trainer of the two phases is gone, its state off the card
+    tg_launches = phase_telemetry_gns(dev, bwd_checked, train_tokens_s)
+    torch.cuda.empty_cache()
+    # every trainer of the three phases is gone, its state off the card
     left = torch.cuda.memory_allocated() - held
-    check(left < 2**26, f"phases paper and checkpoint left {left} bytes "
-          "allocated on the card")
+    check(left < 2**26, f"phases paper, checkpoint and telemetry_gns left "
+          f"{left} bytes allocated on the card")
     bf16_launches = phase_grads_bf16()
     torch.cuda.empty_cache()
 
@@ -3317,6 +3630,7 @@ def main() -> int:
     by_path = {"serve": serve_launches, "serve_paged": paged_launches,
                "router": router_launches, "train": train_launches,
                "paper": paper_launches, "checkpoint": ckpt_launches,
+               "telemetry_gns": tg_launches,
                "grads_bf16": bf16_launches,
                **rwkv_serve, "train_rwkv": rwkv_train, **zamba_serve,
                "train_zamba": zamba_train}

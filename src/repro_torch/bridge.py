@@ -8,7 +8,10 @@ tree: the same keys, each stacked subtree the port keeps as a list
 list of per-layer dicts, every shape checked against the port's
 ``ParamDef``s.
 A train state ``{"params", "opt", "step"}`` maps the same way, the chain
-state leaf for leaf.  :func:`params_to_numpy` and
+state leaf for leaf: its subtrees shaped like the params (Adam's moments,
+SM3's momentum) as the params, and the state the port already keeps in the
+reference's stacked layout (SM3's accumulators, Shampoo's statistics) as
+it is.  :func:`params_to_numpy` and
 :func:`train_state_to_numpy` are the way back: the port's tensors as the
 JAX layout's nested dict of numpy arrays, the per-layer lists stacked
 along axis 0 again, which is what ``repro_torch.checkpoint`` writes.
@@ -23,8 +26,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.models import model_zoo
-from repro_torch.optim.transforms import build_optimizer
 from repro_torch.models.layers import ParamDef
+from repro_torch.optim.transforms import abstract_chain_state, build_optimizer
 
 
 def _convert(defs: Any, tree: Any, path: str, device: torch.device) -> Any:
@@ -62,11 +65,57 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
     return out
 
 
-def _scalar(x: Any, path: str, device: torch.device) -> torch.Tensor:
-    arr = np.asarray(x)
-    if arr.shape != ():
-        raise ValueError(f"{path}: shape {arr.shape} != ()")
-    return torch.tensor(int(arr), dtype=torch.int32, device=device)
+# chain-state subtrees shaped like the params (kept in the port's layout);
+# every other chain-state leaf (counts, SM3's accumulators, Shampoo's
+# statistics) is in the reference's layout on both sides
+_PARAM_SHAPED = {("adam", "m"), ("adam", "v"), ("sm3", "m"),
+                 ("shampoo", "adam", "m"), ("shampoo", "adam", "v")}
+
+
+_NP = {torch.float32: np.float32, torch.int32: np.int32}
+
+
+def _meta_params(defs: Any) -> Any:
+    if isinstance(defs, ParamDef):
+        return torch.empty(tuple(defs.shape), device="meta")
+    if isinstance(defs, list):
+        return [_meta_params(d) for d in defs]
+    return {k: _meta_params(v) for k, v in sorted(defs.items())}
+
+
+def _chain_template(cfg: ModelConfig, opt_cfg: OptimizerConfig) -> Any:
+    """The port's chain state for ``opt_cfg`` as ``meta`` tensors."""
+    return abstract_chain_state(build_optimizer(opt_cfg),
+                                _meta_params(model_zoo.model_defs(cfg)))
+
+
+def _opt_from_numpy(tmpl: Any, tree: Any, path: Tuple[str, ...],
+                    cfg: ModelConfig, device: torch.device) -> Any:
+    where = "/".join(("", "opt") + path)
+    if path in _PARAM_SHAPED:
+        return params_from_numpy(tree, cfg, device)
+    if isinstance(tmpl, dict):
+        if not isinstance(tree, dict) or sorted(tree) != sorted(tmpl):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{where}: keys {got} != port's {sorted(tmpl)}")
+        return {k: _opt_from_numpy(tmpl[k], tree[k], path + (k,), cfg,
+                                   device) for k in sorted(tmpl)}
+    if isinstance(tmpl, (list, tuple)):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(tmpl):
+            raise ValueError(f"{where}: want {len(tmpl)} entries")
+        return tuple(_opt_from_numpy(t, x, path + (str(i),), cfg, device)
+                     for i, (t, x) in enumerate(zip(tmpl, tree)))
+    if tmpl is None:
+        if tree is not None:
+            raise ValueError(f"{where}: want None")
+        return None
+    arr = np.asarray(tree)
+    if tuple(arr.shape) != tuple(tmpl.shape):
+        raise ValueError(f"{where}: shape {arr.shape} != port's "
+                         f"{tuple(tmpl.shape)}")
+    return torch.as_tensor(np.array(arr, dtype=_NP[tmpl.dtype]),
+                           device=device)
+
 
 
 def train_state_from_numpy(tree: Any, cfg: ModelConfig,
@@ -74,37 +123,46 @@ def train_state_from_numpy(tree: Any, cfg: ModelConfig,
                            device: torch.device) -> Any:
     """The port's train state from the reference's, on the host
     (``jax.tree_util.tree_map(np.asarray, state)``): params as
-    :func:`params_from_numpy`; the default chain's state with ``adam.m`` and
-    ``adam.v`` shaped like the params, ``adam.count`` and ``step`` int32;
-    the stateless transforms' empty dicts."""
-    names = sorted(build_optimizer(opt_cfg).init({"w": torch.zeros(1)}))
-    opt = tree["opt"]
-    if sorted(opt) != names:
-        raise ValueError(f"/opt: keys {sorted(opt)} != port's {names}")
-    for name in names:
-        if name != "adam" and len(opt[name]):
-            raise ValueError(f"/opt/{name}: want an empty state")
-    adam = opt["adam"]
-    if sorted(adam) != ["count", "m", "v"]:
-        raise ValueError(f"/opt/adam: keys {sorted(adam)} != "
-                         f"['count', 'm', 'v']")
-    port_opt = {name: {} for name in names}
-    port_opt["adam"] = {
-        "m": params_from_numpy(adam["m"], cfg, device),
-        "v": params_from_numpy(adam["v"], cfg, device),
-        "count": _scalar(adam["count"], "/opt/adam/count", device)}
+    :func:`params_from_numpy`; the chain's state leaf for leaf, the
+    subtrees shaped like the params (Adam's ``m`` and ``v``, SM3's
+    momentum) unstacked as the params, the rest (counts, SM3's
+    accumulators, Shampoo's statistics, ``None`` for an ineligible leaf)
+    as they are; ``step`` int32."""
+    opt = _opt_from_numpy(_chain_template(cfg, opt_cfg), tree["opt"],
+                          (), cfg, device)
+    step = np.asarray(tree["step"])
+    if step.shape != ():
+        raise ValueError(f"/step: shape {step.shape} != ()")
     return {"params": params_from_numpy(tree["params"], cfg, device),
-            "opt": port_opt,
-            "step": _scalar(tree["step"], "/step", device)}
+            "opt": opt,
+            "step": torch.tensor(int(step), dtype=torch.int32,
+                                 device=device)}
 
 
 # ---------------------------------------------------------------------------
 # the way back: the port's tensors -> the JAX layout on the host
 # ---------------------------------------------------------------------------
 
+class LeafSpec(NamedTuple):
+    """Shape and dtype of one leaf (the counterpart of
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: np.dtype
+
+
+def _host(t: torch.Tensor) -> Any:
+    """A tensor on the host as numpy, or a ``meta`` tensor as its
+    :class:`LeafSpec`."""
+    if t.device.type == "meta":
+        return LeafSpec(tuple(t.shape),
+                        np.dtype(str(t.dtype).replace("torch.", "")))
+    return t.detach().cpu().numpy()
+
+
 def _to_numpy(defs: Any, tree: Any, path: str) -> Any:
     if isinstance(defs, ParamDef):
-        arr = tree.detach().cpu().numpy()
+        arr = _host(tree)
         if tuple(arr.shape) != tuple(defs.shape):
             raise ValueError(f"{path}: shape {arr.shape} != "
                              f"{defs.shape}")
@@ -118,12 +176,15 @@ def _to_numpy(defs: Any, tree: Any, path: str) -> Any:
 def _stack(layers: list) -> Any:
     if isinstance(layers[0], dict):
         return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
+    if isinstance(layers[0], LeafSpec):
+        return LeafSpec((len(layers),) + layers[0].shape, layers[0].dtype)
     return np.stack(layers)
 
 
 def params_to_numpy(params: Any, cfg: ModelConfig) -> Any:
-    """The JAX tree of the port's parameters: numpy arrays on the host,
-    ``layers`` / ``mamba_layers`` stacked along axis 0 (the inverse of
+    """The JAX tree of the port's parameters: numpy arrays on the host
+    (:class:`LeafSpec` s for ``meta`` tensors), ``layers`` /
+    ``mamba_layers`` stacked along axis 0 (the inverse of
     :func:`params_from_numpy`)."""
     defs = model_zoo.model_defs(cfg)
     stacked = [k for k, v in defs.items() if isinstance(v, list)]
@@ -139,35 +200,27 @@ def params_to_numpy(params: Any, cfg: ModelConfig) -> Any:
     return out
 
 
-def _scalar_to_numpy(x: torch.Tensor) -> np.ndarray:
-    return np.asarray(x.detach().cpu().numpy(), dtype=np.int32)
+def _opt_to_numpy(tree: Any, path: Tuple[str, ...], cfg: ModelConfig) -> Any:
+    if path in _PARAM_SHAPED:
+        return params_to_numpy(tree, cfg)
+    if isinstance(tree, dict):
+        return {k: _opt_to_numpy(tree[k], path + (k,), cfg)
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_opt_to_numpy(t, path + (str(i),), cfg)
+                     for i, t in enumerate(tree))
+    return None if tree is None else _host(tree)
 
 
 def train_state_to_numpy(state: Any, cfg: ModelConfig) -> Any:
     """The JAX tree of the port's train state (the inverse of
-    :func:`train_state_from_numpy`): params, ``opt.adam.m`` and
-    ``opt.adam.v`` as :func:`params_to_numpy`, ``opt.adam.count`` and
-    ``step`` 0-dim int32, the stateless transforms' empty dicts."""
-    opt = {}
-    for name, sub in state["opt"].items():
-        if name == "adam":
-            opt[name] = {"m": params_to_numpy(sub["m"], cfg),
-                         "v": params_to_numpy(sub["v"], cfg),
-                         "count": _scalar_to_numpy(sub["count"])}
-        elif len(sub):
-            raise ValueError(f"/opt/{name}: want an empty state")
-        else:
-            opt[name] = {}
-    return {"params": params_to_numpy(state["params"], cfg), "opt": opt,
-            "step": _scalar_to_numpy(state["step"])}
-
-
-class LeafSpec(NamedTuple):
-    """Shape and dtype of one leaf (the counterpart of
-    ``jax.ShapeDtypeStruct``)."""
-
-    shape: Tuple[int, ...]
-    dtype: np.dtype
+    :func:`train_state_from_numpy`): params and the chain's params-shaped
+    subtrees as :func:`params_to_numpy`, the rest of the chain state as it
+    is, ``step`` 0-dim int32.  A state of ``meta`` tensors gives the tree
+    of :class:`LeafSpec` s."""
+    return {"params": params_to_numpy(state["params"], cfg),
+            "opt": _opt_to_numpy(state["opt"], (), cfg),
+            "step": _host(state["step"])}
 
 
 def abstract_train_state(cfg: ModelConfig,
@@ -175,15 +228,7 @@ def abstract_train_state(cfg: ModelConfig,
     """The JAX tree of the train state's :class:`LeafSpec` s
     (``repro/launch/steps.py:174``), the ``like`` of a checkpoint
     restore."""
-    def spec(defs: Any, n: int = 0) -> Any:
-        if isinstance(defs, ParamDef):
-            shape = (n,) + tuple(defs.shape) if n else tuple(defs.shape)
-            return LeafSpec(shape, np.dtype(np.float32))
-        return {k: spec(v, n) for k, v in sorted(defs.items())}
-    params = {k: spec(v[0], len(v)) if isinstance(v, list) else spec(v)
-              for k, v in sorted(model_zoo.model_defs(cfg).items())}
-    count = LeafSpec((), np.dtype(np.int32))
-    opt = {name: {} for name in build_optimizer(opt_cfg).init(
-        {"w": torch.zeros(1)})}
-    opt["adam"] = {"m": params, "v": params, "count": count}
-    return {"params": params, "opt": opt, "step": count}
+    params = _meta_params(model_zoo.model_defs(cfg))
+    return train_state_to_numpy(
+        {"params": params, "opt": _chain_template(cfg, opt_cfg),
+         "step": torch.empty((), dtype=torch.int32, device="meta")}, cfg)

@@ -15,8 +15,10 @@
   manifest's ``host`` dict, so a restart resumes the SLW schedule exactly.
 
 A tree is nested dicts (keys in sorted order, as ``jax.tree_util``
-flattens them) and lists of leaves; a leaf is a numpy array, a torch
-tensor or a :class:`repro_torch.bridge.LeafSpec`.  A leaf's key is its
+flattens them), lists and tuples; a leaf is a numpy array, a torch tensor
+or a :class:`repro_torch.bridge.LeafSpec`, and ``None`` is an empty
+subtree, as in ``jax.tree_util`` (Shampoo's statistics of an ineligible
+leaf).  A leaf's key is its
 path joined by ``/``, the JAX package's key.  The trainer writes its state
 in the JAX layout (``repro_torch.bridge.train_state_to_numpy``), so a
 checkpoint written by either package restores in the other.  The
@@ -46,6 +48,8 @@ def _is_node(x: Any) -> bool:
 
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], f"{prefix}{k}/")]
@@ -59,6 +63,8 @@ def _unflatten(like: Any, leaves: List[Any]) -> Any:
     it = iter(leaves)
 
     def build(t):
+        if t is None:
+            return None
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if _is_node(t):

@@ -10,9 +10,9 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs import gpt2, rwkv6_7b, zamba2_2p7b
-from repro_torch.configs.base import (BatchWarmupConfig, ModelConfig,
-                                     OptimizerConfig, RegulatorSpec,
-                                     SLWConfig, TrainConfig)
+from repro_torch.configs.base import (BatchWarmupConfig, GNSConfig,
+                                     ModelConfig, OptimizerConfig,
+                                     RegulatorSpec, SLWConfig, TrainConfig)
 
 ARCHS: Dict[str, ModelConfig] = {
     "gpt2-117m": gpt2.GPT2_117M,
@@ -50,5 +50,6 @@ def reduced(model: ModelConfig) -> ModelConfig:
     return model.replace(**kw)
 
 
-__all__ = ["ARCHS", "BatchWarmupConfig", "ModelConfig", "OptimizerConfig",
-           "RegulatorSpec", "SLWConfig", "TrainConfig", "get_arch", "reduced"]
+__all__ = ["ARCHS", "BatchWarmupConfig", "GNSConfig", "ModelConfig",
+           "OptimizerConfig", "RegulatorSpec", "SLWConfig", "TrainConfig",
+           "get_arch", "reduced"]

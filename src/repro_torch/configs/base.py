@@ -4,9 +4,9 @@ Answers to ``repro/configs/base.py``: ``ModelConfig`` (lines 15-113), and
 ``SLWConfig``, ``BatchWarmupConfig``, ``RegulatorSpec``,
 ``OptimizerConfig`` and ``TrainConfig`` (lines 133-331).  The fields are
 copied, not imported, so this package never imports ``repro``.
-``ModelConfig`` keeps the fields the dense, rwkv and hybrid families
-read; ``TrainConfig`` leaves out ``gns`` and the fields only GNS and
-sharding read, which come with their slices.
+``GNSConfig`` is lines 209-253.  ``ModelConfig`` keeps the fields the
+dense, rwkv and hybrid families read; ``TrainConfig`` leaves out the fields
+only sharding reads, which come with that slice.
 """
 from __future__ import annotations
 
@@ -103,14 +103,18 @@ class BatchWarmupConfig:
 
 @dataclass(frozen=True)
 class RegulatorSpec:
-    """One entry of ``TrainConfig.regulators`` (``base.py:177``).  The port
-    builds the kinds ``seqlen``, ``batch_warmup`` and ``lr``, which read
-    their parameters from the configs above, and ``var_lr_throttle``,
-    parametrized here (``base.py:203-206``); ``grad_noise_batch`` and
-    ``critical_batch``, and the fields that parametrize them, come with
-    their slices (``core.regulators.build_stack`` refuses them)."""
+    """One entry of ``TrainConfig.regulators`` (``base.py:177``).  The
+    kinds ``seqlen``, ``batch_warmup`` and ``lr`` read their parameters
+    from the configs above, ``critical_batch`` from ``TrainConfig.gns``;
+    ``grad_noise_batch`` and ``var_lr_throttle`` are parametrized here
+    (``base.py:198-206``)."""
 
     kind: str
+    # grad_noise_batch
+    min_batch: int = 0  # 0 -> full_batch // 8
+    noise_window: int = 16  # EMA horizon (steps) for grad-norm stats
+    noise_target: float = 0.25  # grow batch while rel. grad-norm std exceeds
+    growth: float = 1.5  # multiplicative batch growth per trigger
     # var_lr_throttle
     gate: float = 2.0  # throttle when var_max > gate * trailing mean
     floor: float = 0.1  # never scale LR below floor * scheduled
@@ -119,13 +123,40 @@ class RegulatorSpec:
 
 
 @dataclass(frozen=True)
+class GNSConfig:
+    """Gradient-noise-scale measurement and the pre-spike precursor
+    (``base.py:210``).  ``enabled`` views the batch as ``shards`` emulated
+    data-parallel replicas inside the train step; their per-shard and
+    full-batch gradient norms feed the unbiased ``B_noise`` estimate.  The
+    precursor fields parametrize the random-sign direction sketches and
+    their lagged autocorrelation; the critical-batch fields drive the
+    ``critical_batch`` regulator kind."""
+
+    enabled: bool = False
+    # realized shard count: the largest divisor of the step's rows <= this
+    shards: int = 4
+    ema_window: int = 32  # EMA horizon (steps) of |G|^2 and tr(Sigma)
+    warmup_obs: int = 8  # observations before B_noise counts as warmed up
+    # critical_batch regulator
+    min_batch: int = 0  # 0 -> full_batch // 8
+    headroom: float = 2.0  # grow the batch while B_noise > headroom * batch
+    growth: float = 1.5  # multiplicative batch growth per trigger
+    # pre-spike precursor
+    precursor_window: int = 12  # sketch ring length (0 disables sketches)
+    precursor_dim: int = 16  # sketch dimension
+    precursor_lags: int = 3  # autocorrelation lags averaged per leaf
+    precursor_gate: float = 0.8  # absolute per-leaf correlation gate
+    precursor_rise: float = 0.25  # ... and score - trailing > rise
+    precursor_grace: int = 6  # score observations before firing is legal
+    precursor_cooldown_steps: int = 8  # LR cool-down window on an event
+    precursor_cooldown_factor: float = 0.5  # LR multiplier in the cool-down
+    sketch_seed: int = 17  # seed of the per-leaf signs
+
+
+@dataclass(frozen=True)
 class OptimizerConfig:
-    """``base.py:265``.  The port's ``optim.transforms.build_optimizer``
-    builds the default chain and refuses the options not ported yet
-    (``optimizer``, ``agc_clip``, ``lr_scales``, ``telemetry_level``).  The
-    tuning fields of SM3, Shampoo and AGC come with those transforms; the
-    reference's ``grad_compression`` fields, which nothing reads, are left
-    out."""
+    """``base.py:256``; the reference's ``grad_compression`` fields, which
+    only the distributed layer reads, are left out."""
 
     lr: float = 6e-4
     min_lr: float = 1e-5
@@ -136,9 +167,19 @@ class OptimizerConfig:
     grad_clip: float = 1.0
     optimizer: str = "adamw"  # adamw | sm3 | shampoo
     decay_mask: str = "all"  # all | std
+    # adaptive gradient clipping: per-leaf grad/param-norm ratio clip
     agc_clip: float = 0.0
+    agc_eps: float = 1e-3
+    # ((label substring, factor), ...): factors multiply the update of
+    # every leaf whose reference label matches
     lr_scales: Tuple[Tuple[str, float], ...] = ()
     telemetry_level: str = "scalar"  # scalar | per_leaf
+    sm3_momentum: float = 0.9  # heavy-ball momentum of SM3 (0 disables)
+    # shampoo: largest block side preconditioned, eigh refresh cadence,
+    # and the statistics' ridge
+    shampoo_block_size: int = 128
+    shampoo_interval: int = 10
+    shampoo_eps: float = 1e-6
     schedule: str = "token_cosine"  # token_cosine | step_cosine | constant
     warmup_steps: int = 0
     warmup_tokens: int = 0
@@ -148,7 +189,7 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """``base.py:313``, without ``gns``, ``sharding_rules``,
+    """``base.py:303``, without ``sharding_rules``,
     ``cast_params_before_use`` and the unread ``log_interval``."""
 
     model: ModelConfig
@@ -157,6 +198,7 @@ class TrainConfig:
     batch_warmup: BatchWarmupConfig = field(default_factory=BatchWarmupConfig)
     # empty = derive from the legacy configs (core.regulators.auto_specs)
     regulators: Tuple[RegulatorSpec, ...] = ()
+    gns: GNSConfig = field(default_factory=GNSConfig)
     seq_len: int = 1024
     global_batch: int = 512
     seed: int = 1234

@@ -13,6 +13,9 @@ Usable as a library (``train(tc, ...)``, ``Trainer``) and as a CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 12 --seq 64 --batch 4 --slw --ckpt-dir /tmp/ck \\
       --ckpt-interval 5 [--resume] [--var-lr-throttle]
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+      --steps 12 --seq 64 --batch 4 --slw --per-leaf-telemetry --gns \\
+      --gns-batch --metrics-jsonl /tmp/m.jsonl [--optimizer sm3|shampoo]
 
 The loop is the paper's joint recipe: the regulator stack plans the step
 (seqlen bucket, batch size, LR, grad-clip scale) -> the full-length host
@@ -29,8 +32,11 @@ off, so fp32 means fp32 on the card.  Checkpoints are the JAX package's
 format (``repro_torch.checkpoint``): the train state in the JAX layout plus
 the control plane's state, so a run resumes mid-warmup on the same
 schedule, from a checkpoint of either package; ``resume`` restores onto
-the trainer's device.  Divergence recovery, fault injection and the GNS
-precursor are not ported yet: their options raise.
+the trainer's device.  Per-leaf telemetry (``--per-leaf-telemetry``), the
+gradient-noise-scale measurement (``--gns``), its critical-batch regulator
+(``--gns-batch``) and precursor, and the optimizer chain's SM3, Shampoo
+and AGC options run as in the reference.  Divergence recovery and fault
+injection are not ported yet: their options raise.
 """
 from __future__ import annotations
 
@@ -48,8 +54,10 @@ import torch
 from repro_torch import bridge
 from repro_torch.checkpoint import CheckpointManager, migrate_host_state
 from repro_torch.configs import get_arch, reduced as reduce_cfg
-from repro_torch.configs.base import (BatchWarmupConfig, OptimizerConfig,
-                                      RegulatorSpec, SLWConfig, TrainConfig)
+from repro_torch.configs.base import (BatchWarmupConfig, GNSConfig,
+                                      OptimizerConfig, RegulatorSpec,
+                                      SLWConfig, TrainConfig)
+from repro_torch.core import telemetry as telemetry_lib
 from repro_torch.core.regulators import (ControllerState, RegulatorStack,
                                          StepPlan, StepTelemetry, auto_specs,
                                          build_stack)
@@ -82,6 +90,8 @@ class TrainResult:
     # distinct batch shapes the loop ran (the reference's jit compiles)
     n_compiles: int = 0
     restored_from_step: Optional[int] = None
+    # gradient-direction early warnings (repro_torch.gns.precursor)
+    precursor_events: List[str] = field(default_factory=list)
 
 
 # ---------------------------------------------------------------------------
@@ -162,11 +172,14 @@ class TelemetryHook(TrainerHook):
 
 class MetricsJsonlHook(TrainerHook):
     """Appends one JSON row per step (StepPlan + StepTelemetry) to a file,
-    flushed per step."""
+    flushed per step.  The optional scalars (``grad_norm_clipped``, the
+    ``gns_*`` pair) are written when finite; with per-leaf vectors, a
+    ``per_leaf`` dict, and the labels once, in the first such row."""
 
     def __init__(self, path: str):
         self.path = path
         self._fh = None
+        self._wrote_labels = False
 
     def on_run_start(self, tr: "Trainer") -> None:
         self._fh = open(self.path, "a", buffering=1)
@@ -179,8 +192,16 @@ class MetricsJsonlHook(TrainerHook):
                "plan": {"seq_len": plan.seq_len,
                         "batch_size": plan.batch_size, "lr": plan.lr,
                         "grad_clip_scale": plan.grad_clip_scale}}
-        if math.isfinite(tele.grad_norm_clipped):
-            row["grad_norm_clipped"] = tele.grad_norm_clipped
+        for k in ("grad_norm_clipped", "gns_small_sq", "gns_big_sq",
+                  "gns_b_small", "gns_b_big"):
+            v = getattr(tele, k)
+            if math.isfinite(v):
+                row[k] = v
+        if tele.per_leaf is not None:
+            row["per_leaf"] = telemetry_lib.per_leaf_to_host(tele.per_leaf)
+            if not self._wrote_labels:
+                row["leaf_labels"] = list(tele.leaf_labels)
+                self._wrote_labels = True
         self._fh.write(json.dumps(row) + "\n")
 
     def on_run_end(self, tr: "Trainer") -> None:
@@ -244,7 +265,9 @@ class Trainer:
     are hooks.  ``state`` may be replaced before ``run``
     (``repro_torch.bridge.train_state_from_numpy`` carries a reference
     state over).  ``fail_at_step`` raises before that step runs (the
-    fault-tolerance drills).
+    fault-tolerance drills).  With ``tc.gns`` enabled and a precursor
+    window, a :class:`repro_torch.gns.PrecursorHook` records the
+    precursor's events on ``result.precursor_events``.
     """
 
     def __init__(self, tc: TrainConfig, *, dp_size: int = 1,
@@ -271,6 +294,8 @@ class Trainer:
         self.state = steps_lib.init_train_state(
             torch.Generator(device=self.device).manual_seed(tc.seed), cfg,
             tc.optimizer, self.device)
+        # the reference's leaf labels, fixed for the run
+        self.leaf_labels = telemetry_lib.param_labels(self.state["params"])
         corpus = SyntheticCorpus(vocab_size=cfg.vocab_size,
                                  seq_len=tc.seq_len, seed=tc.seed)
         self.pipeline = DataPipeline(corpus, tc.global_batch)
@@ -282,7 +307,8 @@ class Trainer:
         self.ckpt = (CheckpointManager(tc.checkpoint_dir, tc.keep_checkpoints)
                      if tc.checkpoint_dir else None)
         self.saved_step: Optional[int] = None  # of this run's last save
-        self.step_fn = steps_lib.make_train_step(self.model, tc.optimizer)
+        self.step_fn = steps_lib.make_train_step(self.model, tc.optimizer,
+                                                 gns=tc.gns)
 
         self.result = TrainResult()
         self.step = 0
@@ -294,6 +320,13 @@ class Trainer:
         self.hooks: List[TrainerHook] = [
             DrainHook(drain), WatchdogHook(), TelemetryHook(callback),
             EvalHook(eval_batch=eval_batch, quiet=quiet), CheckpointHook()]
+        if tc.gns.enabled and tc.gns.precursor_window > 0:
+            from repro_torch.gns.precursor import (GradientPrecursor,
+                                                   PrecursorHook)
+            self.hooks.append(PrecursorHook(
+                GradientPrecursor(tc.gns), controller=None,
+                cool=(tc.gns.precursor_cooldown_factor,
+                      tc.gns.precursor_cooldown_steps)))
         self.hooks += list(hooks or [])
 
     def request_drain(self) -> None:
@@ -365,14 +398,22 @@ class Trainer:
         self.state, out = self.step_fn(
             self.state, self.to_device(batch), float(np.float32(plan.lr)),
             float(np.float32(plan.grad_clip_scale)))
-        metrics = {k: float(v) for k, v in out.items()}
+        # one transfer: the scalars as floats, the per-leaf vectors apart
+        metrics, per_leaf = telemetry_lib.split_metrics(out)
         loss = metrics["loss"]
         ratio = (self.tracker.update(loss) if math.isfinite(loss)
                  else float("inf"))
+        nan = float("nan")
         post = dataclasses.replace(
             tele, loss=loss, loss_ratio=ratio, grad_norm=metrics["grad_norm"],
             grad_norm_clipped=metrics["grad_norm_clipped"],
-            var_max=metrics["var_max"], var_l1=metrics["var_l1"])
+            var_max=metrics["var_max"], var_l1=metrics["var_l1"],
+            gns_small_sq=metrics.get("gns_small_sq", nan),
+            gns_big_sq=metrics.get("gns_big_sq", nan),
+            gns_b_small=metrics.get("gns_b_small", nan),
+            gns_b_big=metrics.get("gns_b_big", nan),
+            per_leaf=per_leaf,
+            leaf_labels=self.leaf_labels if per_leaf is not None else ())
         self.stack.observe(post, tokens_step)
         self.step += 1
         self.tokens_seen += tokens_step
@@ -446,13 +487,10 @@ def train(tc: TrainConfig, max_steps: Optional[int] = None,
 # CLI
 # ---------------------------------------------------------------------------
 
-# flags of the reference CLI whose features are not ported yet: any value
-# but the default raises
-NOT_PORTED = {"optimizer": "adamw", "agc": 0.0, "per_leaf_telemetry": False,
-              "grad_noise_batch": False, "gns": False, "gns_batch": False,
-              "recover": False, "inject_faults": "", "gns_shards": 4,
-              "gns_precursor_window": 12, "gns_headroom": 2.0,
-              "max_rollbacks": 3, "inject_seed": 0}
+# flags of the reference CLI whose features are not ported yet (divergence
+# recovery and fault injection): any value but the default raises
+NOT_PORTED = {"recover": False, "inject_faults": "", "max_rollbacks": 3,
+              "inject_seed": 0}
 
 
 def build_config(args) -> TrainConfig:
@@ -474,21 +512,32 @@ def build_config(args) -> TrainConfig:
         warmup_tokens=args.warmup * args.batch * args.seq,
         total_steps=args.steps, total_tokens=total_tokens,
         schedule=args.schedule, grad_clip=args.clip,
-        decay_mask=args.decay_mask)
+        optimizer=args.optimizer, decay_mask=args.decay_mask,
+        agc_clip=args.agc,
+        telemetry_level=("per_leaf" if args.per_leaf_telemetry
+                         else "scalar"))
     bw = BatchWarmupConfig(enabled=args.batch_warmup,
                            start_batch=max(args.batch // 8, 1),
                            warmup_tokens=total_tokens // 20)
+    gns = GNSConfig(enabled=args.gns or args.gns_batch,
+                    shards=args.gns_shards,
+                    precursor_window=args.gns_precursor_window,
+                    headroom=args.gns_headroom)
     tc = TrainConfig(model=cfg, optimizer=opt, slw=slw, batch_warmup=bw,
-                     seq_len=args.seq, global_batch=args.batch,
+                     gns=gns, seq_len=args.seq, global_batch=args.batch,
                      seed=args.seed, remat=args.remat,
                      eval_interval=args.eval_interval,
                      checkpoint_interval=args.ckpt_interval,
                      checkpoint_dir=args.ckpt_dir)
-    # the throttle multiplies the scheduled LR, so it comes after the
-    # auto-derived schedules
-    if args.var_lr_throttle:
-        tc = dataclasses.replace(tc, regulators=auto_specs(tc) + (
-            RegulatorSpec(kind="var_lr_throttle"),))
+    # the telemetry-driven regulators come after the auto-derived
+    # schedules (the throttle multiplies the scheduled LR)
+    extra = [RegulatorSpec(kind=kind) for kind, on in (
+        ("grad_noise_batch", args.grad_noise_batch),
+        ("critical_batch", args.gns_batch),
+        ("var_lr_throttle", args.var_lr_throttle)) if on]
+    if extra:
+        tc = dataclasses.replace(tc,
+                                 regulators=auto_specs(tc) + tuple(extra))
     return tc
 
 
@@ -511,11 +560,14 @@ def main(argv=None) -> int:
                    choices=["token_cosine", "step_cosine", "constant"])
     p.add_argument("--optimizer", default="adamw",
                    choices=["adamw", "sm3", "shampoo"],
-                   help="only adamw is ported")
+                   help="inner optimizer of the gradient-transform chain")
     p.add_argument("--decay-mask", default="all", choices=["all", "std"])
-    p.add_argument("--agc", type=float, default=0.0, help="not ported yet")
+    p.add_argument("--agc", type=float, default=0.0,
+                   help="adaptive gradient clipping threshold (per-leaf "
+                        "grad/param norm ratio; 0 disables)")
     p.add_argument("--per-leaf-telemetry", action="store_true",
-                   help="not ported yet")
+                   help="per-parameter-group vectors (var_max, grad, "
+                        "update and param norms per reference leaf)")
     p.add_argument("--slw", action="store_true")
     p.add_argument("--pacing", default="linear",
                    choices=["linear", "root", "two_stage", "variance_gated",
@@ -529,15 +581,22 @@ def main(argv=None) -> int:
     p.add_argument("--batch-warmup", action="store_true",
                    help="composes with --slw (the paper's joint recipe)")
     p.add_argument("--grad-noise-batch", action="store_true",
-                   help="not ported yet")
-    p.add_argument("--gns", action="store_true", help="not ported yet")
+                   help="adaptive batch sizing from grad-norm noise")
+    p.add_argument("--gns", action="store_true",
+                   help="gradient-noise-scale measurement: per-shard grad "
+                        "norms in the train step, the B_noise estimate "
+                        "and the direction-sketch spike precursor")
     p.add_argument("--gns-shards", type=int, default=4,
-                   help="not ported yet")
-    p.add_argument("--gns-batch", action="store_true", help="not ported yet")
+                   help="emulated data-parallel shards for the GNS pair "
+                        "(the largest divisor of the batch is used)")
+    p.add_argument("--gns-batch", action="store_true",
+                   help="B_noise-measured batch warmup (critical_batch "
+                        "regulator; implies --gns)")
     p.add_argument("--gns-precursor-window", type=int, default=12,
-                   help="not ported yet")
+                   help="direction-sketch ring length of the precursor "
+                        "(0 disables it)")
     p.add_argument("--gns-headroom", type=float, default=2.0,
-                   help="not ported yet")
+                   help="grow the batch while B_noise > headroom * batch")
     p.add_argument("--var-lr-throttle", action="store_true",
                    help="LR backoff while the Adam variance max spikes")
     p.add_argument("--dp-size", type=int, default=1,
@@ -573,6 +632,8 @@ def main(argv=None) -> int:
         print(f"resumed from the step-{res.restored_from_step} checkpoint")
     print("stability:", res.tracker_summary)
     print("watchdog:", res.watchdog_summary)
+    if tc.gns.enabled:
+        print(f"precursor: events={res.precursor_events}")
     return 0 if not res.diverged else 1
 
 

@@ -39,6 +39,10 @@ import importlib.util
 for path in {examples!r}:
     spec = importlib.util.spec_from_file_location("example", path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name in ("repro_torch.core.telemetry", "repro_torch.optim.adam",
+             "repro_torch.gns.estimator", "repro_torch.gns.precursor",
+             "repro_torch.gns.regulator"):
+    assert name in names, name
 leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
@@ -183,10 +187,8 @@ def test_examples_run_on_the_cpu_when_asked(capsys, name):
 
 def test_train_cli_refuses_what_is_not_ported():
     from repro_torch.launch import train
-    for flags in (["--recover"], ["--gns"],
-                  ["--optimizer", "sm3"], ["--remat", "dots"],
-                  ["--gns-shards", "2"], ["--gns-precursor-window", "4"],
-                  ["--gns-headroom", "3"],
+    for flags in (["--recover"], ["--remat", "dots"],
+                  ["--inject-faults", "spike@2:8.0"],
                   ["--max-rollbacks", "1"], ["--inject-seed", "7"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             train.main(["--reduced", "--device", "cpu", "--steps", "1",

@@ -144,10 +144,16 @@ def test_controller_state_round_trip_resumes_the_plans():
 
 
 def test_refused_regulator_kinds_raise():
-    tc = dataclasses.replace(
-        _train_configs(tbase, "tiny", "linear", "truncate", False),
-        regulators=(tbase.RegulatorSpec(kind="grad_noise_batch"),))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Every kind of the reference builds; an unknown kind raises, as in
+    the reference."""
+    base = _train_configs(tbase, "tiny", "linear", "truncate", False)
+    for kind in ("grad_noise_batch", "critical_batch", "var_lr_throttle"):
+        tc = dataclasses.replace(base,
+                                 regulators=(tbase.RegulatorSpec(kind=kind),))
+        assert kind in tregulators.build_stack(tc)
+    tc = dataclasses.replace(base,
+                             regulators=(tbase.RegulatorSpec(kind="nope"),))
+    with pytest.raises(ValueError, match="unknown regulator kind"):
         tregulators.build_stack(tc)
 
 
