@@ -54,6 +54,19 @@ weights from a seed:
   per-leaf vectors recomposing the scalars, the sharded gradient against
   the single pass, one GNS step against the flash kernels' plain
   versions, and the launch counts;
+* divergence recovery and fault injection on GPT-2 117M at full width
+  (phase ``recovery``): a NaN planted in q, k and v must leave the flash
+  kernels' outputs non-finite wherever the plain versions' are; then a
+  fault matrix (a stall, a NaN, a parameter spike and a one-block
+  gradient spike) survived by rollbacks, the NaN step against its
+  plain-kernel twin and the gradient spike against its twin without the
+  spike on a cloned state; a rolled-back spike replayed bit for bit, a
+  second restore of the snapshot giving the first's bits; a crash between
+  a checkpoint's payload and its rename under a supervisor, a drain that
+  spills the rollback ring and a resume that refills it bit for bit, NaNs
+  rolled back onto a refilled snapshot; and the GNS precursor's events
+  snapshotting and cooling the LR; with the ring's snapshot, materialize,
+  rollback, spill and load times;
 * RWKV-6: the WKV-6 forward and backward kernels against their plain
   versions (and the backward against autograd through the plain forward)
   at every shape the RWKV paths give them, then full-width rwkv6-7b cut
@@ -1387,7 +1400,7 @@ def phase_train(dev: dict, checked: set) -> dict:
                               "top_kernels_ms": top,
                               "flash_kernels_ms": fa_ms})
     return {"init": init, "result": res, "launches": launches,
-            "tokens_per_s": full_tokens / sum(full_s)}
+            "tokens_per_s": full_tokens / sum(full_s), "peak": peak}
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -2064,6 +2077,655 @@ def phase_telemetry_gns(dev: dict, checked: set, train_tokens_s: float
          sm3_vs_adamw_state_bytes=[out["sm3"]["opt_state_bytes"],
                                    out["gns"]["opt_state_bytes"]],
          arms=out, launches=total)
+    return total
+
+
+# phase recovery: divergence recovery and fault injection at full gpt2-117m
+# width on train_config()'s joint recipe, four arms
+# (1) the fault matrix; the stall sits at step 12: the watchdog flags a
+# straggler only once it holds 8 durations (fault_tolerance.py:80)
+RECOVERY_MATRIX = ("stall@12:0.5,nan_grad@8,spike@16:64.0,"
+                   "grad_spike@22:1000|layers/attn")
+RECOVERY_MAX_RETRIES = 5
+# (2) an exact replay: a spike, rolled back with a no-op intervention
+RECOVERY_REPLAY = "spike@10:64.0"
+# (3) a crash between the checkpoint's payload and its rename, under a
+# supervisor; a drain; a resume with the ring refilled; two NaNs at one
+# step make the rollback fall back to a refilled snapshot
+RECOVERY_CKPT_INTERVAL, RECOVERY_CRASH, RECOVERY_DRAIN = 5, 10, 17
+RECOVERY_AFTER_RESUME = "nan_grad@18,nan_grad@18"
+# (4) the reference's precursor scenario (tests/test_gns.py:501-528)
+RECOVERY_PRECURSOR = "spike@12:2.0,spike@22:32.0"
+# the grad_spike step's raw per-leaf gradient norms against its twin step's
+# on a cloned state: the attention groups' x1000, the others' x1 (fixed
+# before the first run: the same inputs through the same kernels, the
+# norms of gradients scaled exactly; the room is the norms' fp32 rounding)
+GRAD_SPIKE_RTOL = 1e-5
+# an arm's device max_memory_allocated against phase train's
+PEAK_SLACK = 1.05
+
+
+def recovery_shapes() -> set:
+    """Every (rows, seq) the recovery arms can run a forward at.  A second
+    rollback clamps the seq len a ladder rung down, which moves the
+    token-driven batch warmup off its plan, so: any batch of the warmup at
+    any bucket of the ladder, whole and as the GNS arm's shards."""
+    from repro_torch.core.regulators import build_stack
+    tc = train_config()
+    ladder = build_stack(tc)["seqlen"].curriculum.ladder
+    gns = telemetry_arms()["gns"][0].gns
+    rows = {r for b in range(tc.batch_warmup.start_batch, B_TRAIN + 1)
+            for r in (b, _shard_rows(gns, b))}
+    return {(r, s) for r in rows for s in ladder} | {(EVAL_BATCH, S_TRAIN)}
+
+
+def check_nan_propagation() -> dict:
+    """A NaN planted in one element of q, of k and of v at the training
+    shape (16 x 1024, fp32): the forward kernel's o and lse and the three
+    backward kernels' dq, dk and dv (each on its own path's forward) are
+    non-finite wherever the plain versions' are, among the outputs that
+    depend on the planted element (those the plain versions change when
+    it moves by 1: a plain einsum also spreads 0 x NaN over masked keys)."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    q, k, v = _attn_inputs(B_TRAIN, S_TRAIN, torch.float32, 77)
+    do = _attn_inputs(B_TRAIN, S_TRAIN, torch.float32, 78)[0]
+    where = (5, 2 * S_TRAIN // 3, 17)  # (bh, row, feature) of the NaN
+
+    def run(fwd, bwd, xs):
+        o, lse = fwd(*xs)
+        return [o, lse, *bwd(*xs, o, lse, do)]
+
+    def planted(i, value):
+        xs = [t.clone() for t in (q, k, v)]
+        xs[i][where] = value if value is not None else xs[i][where] + 1.0
+        return xs
+
+    plain = lambda xs: run(K.flash_attention_fwd_plain,  # noqa: E731
+                           K.flash_attention_bwd_plain, xs)
+    kernel = lambda xs: run(K.flash_attention_fwd,  # noqa: E731
+                            K.flash_attention_bwd, xs)
+    base = plain((q, k, v))
+    out = {}
+    for i, name in enumerate("qkv"):
+        moved = plain(planted(i, None))
+        p_nan = plain(planted(i, float("nan")))
+        k_nan = kernel(planted(i, float("nan")))
+        torch.cuda.synchronize()
+        for j, out_name in enumerate(("o", "lse", "dq", "dk", "dv")):
+            dep = base[j] != moved[j]
+            want = ~torch.isfinite(p_nan[j]) & dep
+            got = ~torch.isfinite(k_nan[j])
+            missed = int((want & ~got).sum())
+            out[f"{name}->{out_name}"] = {
+                "plain_nonfinite_dependent": int(want.sum()),
+                "kernel_nonfinite": int(got.sum()),
+                "missed": missed}
+            check(missed == 0, f"a NaN in {name}: the kernels' {out_name} is "
+                  f"finite at {missed} entries where the plain version's is "
+                  f"not")
+        del moved, p_nan, k_nan
+    return out
+
+
+def _host_copy(state):
+    from repro_torch.core.recovery import _tree_map
+    return _tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+
+
+def _to_card(state):
+    from repro_torch.core.recovery import _tree_map
+    return _tree_map(lambda t: t.to("cuda", copy=True), state)
+
+
+class _Probe:
+    """Timers and records around one trainer's recovery machinery and train
+    step (instance attributes over the methods, removed by ``close`` so
+    no reference cycle keeps the trainer's state on the card).  Copies the
+    state going into the first pass of each step in ``capture`` to the
+    host, with the step's batch and arguments."""
+
+    def __init__(self, tr, capture=()):
+        self.tr, self.capture = tr, set(capture)
+        self.push_ms, self.mat_ms, self.rollback_ms = [], [], []
+        self.spill, self.load = [], []
+        self.calls, self.captured, self.rollbacks = [], {}, []
+        self.precursor, self.restored_from = [], None
+        ctrl, ring = tr.recovery, tr.recovery.ring
+        self._owners = [(ring, "push"), (ring, "materialize"),
+                        (ring, "save"), (ring, "load"), (ctrl, "handle"),
+                        (ctrl, "handle_precursor"), (tr, "step_fn")]
+        push, mat, save, load = (ring.push, ring.materialize, ring.save,
+                                 ring.load)
+        handle, precursor, step_fn = (ctrl.handle, ctrl.handle_precursor,
+                                      tr.step_fn)
+
+        def timed(fn, into):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                into.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+
+        ring.push = timed(push, self.push_ms)
+        ring.save = timed(save, self.spill)
+        ring.load = timed(load, self.load)
+        timed_mat = timed(mat, self.mat_ms)
+
+        def materialize(snap, device):
+            self.restored_from = snap
+            return timed_mat(snap, device)
+        ring.materialize = materialize
+        timed_handle = timed(handle, self.rollback_ms)
+
+        def on_event(trainer, event):
+            self.rollbacks.append((str(event), list(ring.steps)))
+            return timed_handle(trainer, event)
+        ctrl.handle = on_event
+
+        def on_precursor(trainer, event, **kw):
+            precursor(trainer, event, **kw)
+            self.precursor.append((str(event), trainer.step,
+                                   ring.newest().step,
+                                   len(trainer.result.loss_history) - 1))
+        ctrl.handle_precursor = on_precursor
+
+        def step(state, batch, lr, clip, **extra):
+            s = tr.step
+            self.calls.append((s, tuple(sorted(extra))))
+            if s in self.capture and s not in self.captured:
+                self.captured[s] = (_host_copy(state), batch, lr, clip,
+                                    dict(extra))
+            return step_fn(state, batch, lr, clip, **extra)
+        tr.step_fn = step
+
+    def close(self) -> None:
+        for owner, name in self._owners:
+            owner.__dict__.pop(name, None)
+        self.tr = None
+
+
+def _recorder():
+    """A hook recording each executed step's telemetry and plan, its wall
+    time since the last step's end (the step and every hook: snapshots and
+    rollbacks included) and whether the watchdog flagged it."""
+    from repro_torch.launch.train import TrainerHook
+
+    class Record(TrainerHook):
+        def __init__(self):
+            self.rows, self._t, self._n = [], None, 0
+
+        def on_run_start(self, tr):
+            self._t = time.perf_counter()
+
+        def on_step_end(self, tr, tele, plan, metrics):
+            now = time.perf_counter()
+            flagged = len(tr.watchdog.straggler_steps) > self._n
+            self._n = len(tr.watchdog.straggler_steps)
+            self.rows.append({"step": tele.step, "tele": tele,
+                              "plan": (plan.seq_len, plan.batch_size,
+                                       plan.lr),
+                              "wall_s": now - self._t,
+                              "watchdog_s": tr.watchdog.durations[-1],
+                              "straggler": flagged})
+            self._t = now
+    return Record()
+
+
+def _first_pass(rows) -> dict:
+    """step -> the row of its first execution."""
+    out = {}
+    for r in rows:
+        out.setdefault(r["step"], r)
+    return out
+
+
+def _arm_common(name, res, launches, peak, train_peak, checked, passes=None):
+    """The checks every arm shares: launch counts, checked shapes, memory."""
+    n_layers = train_config().model.n_layers
+    executed = len(res.loss_history)
+    want = _want_launches(n_layers, executed if passes is None else passes,
+                          len(res.val_ppl_history))
+    check(launches == want, f"recovery {name}: launches {launches} != {want}")
+    check(peak <= PEAK_SLACK * train_peak,
+          f"recovery {name}: peak {peak} > {PEAK_SLACK} x train's {train_peak}")
+    return executed
+
+
+def _ring_stats(probe) -> dict:
+    return {"snapshot_ms_mean": float(np.mean(probe.push_ms))
+            if probe.push_ms else None,
+            "snapshot_ms_max": max(probe.push_ms, default=None),
+            "snapshots": len(probe.push_ms),
+            "materialize_ms": probe.mat_ms,
+            "rollback_wall_ms": probe.rollback_ms}
+
+
+def _tokens_per_s(rows, skip) -> dict:
+    """Tokens/s over the first passes at the longest seq len run (the full
+    length unless a rollback clamped it) of steps not in ``skip``: by the
+    watchdog (the step alone) and by the wall (with its hooks, snapshots
+    included)."""
+    first = [r for s, r in _first_pass(rows).items() if s not in skip]
+    seq = max(r["plan"][0] for r in first)
+    rs = [r for r in first if r["plan"][0] == seq]
+    tokens = sum(r["plan"][1] * seq for r in rs)
+    return {"seq_len": seq, "steps": len(rs),
+            "watchdog": tokens / sum(r["watchdog_s"] for r in rs),
+            "wall": tokens / sum(r["wall_s"] for r in rs)}
+
+
+def _recovery_matrix(checked, train_peak) -> dict:
+    """Arm 1: the fault matrix with per-leaf telemetry."""
+    from repro_torch.core.recovery import RecoveryConfig
+    from repro_torch.core.telemetry import split_metrics
+    from repro_torch.distributed.fault_injection import FaultInjector
+    from repro_torch.distributed.fault_tolerance import RetryPolicy
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import Trainer
+    tc = train_config()
+    tc = dataclasses.replace(tc, optimizer=dataclasses.replace(
+        tc.optimizer, telemetry_level="per_leaf"))
+    inj = FaultInjector.from_cli(RECOVERY_MATRIX, seed=SEED)
+    rec = _recorder()
+    tr = Trainer(tc, eval_batch=EVAL_BATCH, hooks=[rec], device="cuda",
+                 recovery=RecoveryConfig(policy=RetryPolicy(
+                     max_retries=RECOVERY_MAX_RETRIES)),
+                 fault_injector=inj)
+    probe = _Probe(tr, capture=(7, 8, 22))
+    kernels = _fa_kernels()
+    try:
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = tr.run()
+        launches = {n: f.launches for n, f in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        ring_bytes = sum(_opt_bytes(s.state) for s in tr.recovery.ring)
+        straggler_steps = tr.watchdog.straggler_steps
+        model, labels = tr.model, tr.leaf_labels
+        leaf_scales = dict(tr.stack["recovery"].leaf_lr_scales)
+    finally:
+        probe.close()
+        del tr
+    torch.cuda.empty_cache()
+    executed = _arm_common("matrix", res, launches, peak, train_peak, checked)
+    check(res.steps == TRAIN_STEPS and not res.diverged,
+          f"matrix: {res.steps} steps, diverged {res.diverged}")
+    specs = [str(s) for s in inj.specs]
+    check(sorted(res.faults_fired) == sorted(specs),
+          f"matrix: fired {res.faults_fired}")
+    check(res.rollbacks in (2, 3), f"matrix: {res.rollbacks} rollbacks")
+    for (event, ring_steps), restored in zip(
+            probe.rollbacks, [e for e in res.recovery_events
+                              if e.startswith("restored@")]):
+        check(int(restored.split("@")[1]) in ring_steps,
+              f"matrix: {restored} after {event}, ring held {ring_steps}")
+    shapes = _run_shapes(res)
+    check(shapes <= checked, f"matrix: shapes {shapes - checked}")
+    first = _first_pass(rec.rows)
+    check(first[12]["straggler"], "matrix: the stall at 12 is no straggler")
+
+    # the NaN step and the step before, again on the plain versions
+    finite = {}
+    for s in (7, 8):
+        host, batch, lr, clip, extra = probe.captured[s]
+        with _plain_flash():
+            _, out = make_train_step(model, tc.optimizer)(
+                _to_card(host), batch, lr, clip, **extra)
+        m, _ = split_metrics(out)
+        tele = first[s]["tele"]
+        finite[s] = {"kernels": [tele.loss, tele.grad_norm],
+                     "plain": [m["loss"], m["grad_norm"]]}
+        del out
+    ok = lambda xs: all(math.isfinite(x) for x in xs)  # noqa: E731
+    check(ok(finite[7]["kernels"]) and ok(finite[7]["plain"]),
+          f"matrix: step 7 {finite[7]}")
+    check(not any(math.isfinite(x) for x in finite[8]["kernels"] +
+                  finite[8]["plain"]), f"matrix: step 8 {finite[8]}")
+
+    # the grad_spike step against its twin without the grad_scale vector
+    host, batch, lr, clip, extra = probe.captured[22]
+    check("grad_scale" in extra, "matrix: no grad_scale at step 22")
+    scale = extra.pop("grad_scale")
+    _, out = make_train_step(model, tc.optimizer)(_to_card(host), batch, lr,
+                                                  clip, **extra)
+    _, twin = split_metrics(out)
+    del out, host, probe.captured
+    torch.cuda.empty_cache()
+    ratio = (first[22]["tele"].per_leaf["grad_norm"].astype(np.float64)
+             / twin["grad_norm"].astype(np.float64))
+    want = np.where([lb.startswith("layers/attn") for lb in labels],
+                    1000.0, 1.0)
+    check(np.array_equal(scale, want.astype(np.float32)),
+          f"matrix: grad_scale {scale}")
+    ratio_err = float(np.max(np.abs(ratio / want - 1.0)))
+    check(ratio_err <= GRAD_SPIKE_RTOL,
+          f"matrix: grad_spike ratios {dict(zip(labels, ratio))}")
+    scaled = [s for s, keys in probe.calls if "grad_scale" in keys]
+    check(scaled == [22], f"matrix: grad_scale went into steps {scaled}")
+    blamed = [e for e in res.recovery_events if "leaf=" in e
+              and int(e.split("@")[1].split("(")[0]) >= 22]
+    check(all("leaf=layers/attn" in e for e in blamed),
+          f"matrix: blamed {blamed}")
+    with_lr = ["leaf_lr" in keys for _, keys in probe.calls]
+    leaf_lr = [s for (s, _), w in zip(probe.calls, with_lr) if w]
+    if leaf_scales:  # from the step after the rollback that set it, on
+        check(any(with_lr) and all(with_lr[with_lr.index(True):]),
+              f"matrix: leaf_lr went into steps {leaf_lr}")
+    replayed = executed - TRAIN_STEPS
+    return {"rollbacks": res.rollbacks, "events": res.recovery_events,
+            "faults": res.faults_fired, "steps_executed": executed,
+            "steps_replayed": replayed, "launches": launches,
+            "max_memory_allocated": peak, "ring_host_bytes": ring_bytes,
+            "straggler_steps": straggler_steps,
+            "nan_step_finite": finite, "grad_spike_ratio_max_rel_err":
+                ratio_err, "leaf_lr_steps": leaf_lr,
+            "leaf_lr_scales": leaf_scales,
+            "tokens_per_s": _tokens_per_s(rec.rows, {12, 16, 22}),
+            **_ring_stats(probe), "wall_s": res.wall_time_s}
+
+
+def _recovery_replay(checked, train_peak, clean) -> dict:
+    """Arm 2: a spike rolled back with a no-op intervention replays the
+    clean run bit for bit; a second restore of the snapshot, three steps
+    on, gives the first restore's bits."""
+    from repro_torch.core.recovery import RecoveryConfig
+    from repro_torch.distributed.fault_injection import FaultInjector
+    from repro_torch.launch.train import Trainer, TrainerHook
+    from repro_torch.optim.transforms import tree_leaves
+    again = {}
+
+    class RestoreAgain(TrainerHook):
+        """Keeps the restored state on the host (after the rollback, before
+        the next step writes it in place), and at step 12 restores the
+        same snapshot again, past the probe's timers."""
+
+        def on_step_end(self, tr, tele, plan, metrics):
+            ring = tr.recovery.ring
+            if tr.recovery.rollbacks == 1 and "first" not in again:
+                again["step"] = tr.recovery._last_restore_step
+                again["first"] = _host_copy(tr.state)
+            elif tele.step == 12 and "first" in again and "equal" not in again:
+                snap = [s for s in ring if s.step == again["step"]][0]
+                second = type(ring).materialize(ring, snap, tr.device)
+                again["equal"] = all(
+                    torch.equal(a.cpu(), b) for a, b in zip(
+                        tree_leaves(second), tree_leaves(again.pop("first"))))
+                del second
+
+    rec = _recorder()
+    tr = Trainer(train_config(), eval_batch=EVAL_BATCH, device="cuda",
+                 hooks=[RestoreAgain(), rec],
+                 recovery=RecoveryConfig(lr_backoff=1.0, lr_floor=1.0),
+                 fault_injector=FaultInjector.from_cli(RECOVERY_REPLAY,
+                                                       seed=SEED))
+    probe = _Probe(tr)
+    kernels = _fa_kernels()
+    try:
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = tr.run()
+        launches = {n: f.launches for n, f in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        probe.close()
+        del tr
+    torch.cuda.empty_cache()
+    executed = _arm_common("replay", res, launches, peak, train_peak, checked)
+    check(res.steps == TRAIN_STEPS and not res.diverged
+          and res.rollbacks == 1 and "restored@10" in res.recovery_events,
+          f"replay: {res.recovery_events}")
+    check(_run_shapes(res) <= checked, "replay: shapes not checked")
+    n = TRAIN_STEPS - 10
+    plans = lambda r, lo: list(zip(r.seqlen_history[lo:],  # noqa: E731
+                                   r.batch_history[lo:], r.lr_history[lo:]))
+    check(executed == TRAIN_STEPS + 1 and plans(res, -n) == plans(clean, 10),
+          "replay: the replayed plans are not the clean run's")
+    bit = res.loss_history[-n:] == clean.loss_history[10:]
+    check(bit, "replay: the replayed losses are not the clean run's bits")
+    check(again.get("equal") is True and again.get("step") == 10,
+          f"replay: a second restore of the snapshot: {again}")
+    return {"events": res.recovery_events, "steps_executed": executed,
+            "losses_bit_identical": bit, "second_restore_bit_identical":
+                again["equal"], "launches": launches,
+            "max_memory_allocated": peak, **_ring_stats(probe),
+            "tokens_per_s": _tokens_per_s(rec.rows, {10}),
+            "val_ppl": res.val_ppl_history,
+            "clean_val_ppl": clean.val_ppl_history}
+
+
+def _recovery_drain(checked, train_peak) -> dict:
+    """Arm 3: a crash between a checkpoint's payload and its rename under
+    a supervisor, a drain that spills the ring, a resume that refills it,
+    and NaNs after the resume rolled back onto a refilled snapshot."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core.recovery import RecoveryConfig
+    from repro_torch.distributed.fault_injection import FaultInjector
+    from repro_torch.distributed.fault_tolerance import (RetryPolicy,
+                                                         TrainSupervisor)
+    from repro_torch.launch.train import Trainer, TrainerHook
+    from repro_torch.optim.transforms import tree_leaves
+
+    class DrainAt(TrainerHook):
+        def on_step_start(self, tr):
+            if tr.step == RECOVERY_DRAIN:
+                tr.request_drain()
+
+    kernels = _fa_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    try:
+        tc = dataclasses.replace(
+            train_config(), checkpoint_dir=ckpt_dir,
+            checkpoint_interval=RECOVERY_CKPT_INTERVAL, keep_checkpoints=1)
+        rc = RecoveryConfig(ring=2)
+        inj = FaultInjector.from_cli(f"crash@{RECOVERY_CRASH}:post_tmp",
+                                     seed=SEED)
+        attempts = []
+        torch.cuda.reset_peak_memory_stats()
+
+        def run(resume: bool) -> str:
+            attempts.append({
+                "tmp_left": (Path(ckpt_dir)
+                             / f"tmp.{RECOVERY_CRASH}").is_dir(),
+                "latest": latest_step(ckpt_dir)})
+            tr = Trainer(tc, eval_batch=EVAL_BATCH, hooks=[DrainAt()],
+                         recovery=rc, fault_injector=inj, device="cuda")
+            probe = _Probe(tr)
+            try:
+                restored = tr.resume() if resume else None
+                res = tr.run()
+                attempts[-1].update(restored=restored, result=res,
+                                    ring=list(tr.recovery.ring),
+                                    spill_ms=probe.spill,
+                                    **_ring_stats(probe))
+                return f"ok:{res.steps}"
+            finally:
+                probe.close()
+
+        sup = TrainSupervisor(policy=RetryPolicy(max_retries=1))
+        out = sup.run(run)
+        torch.cuda.empty_cache()
+        first = attempts[-1]
+        res = first["result"]
+        check(out == f"ok:{RECOVERY_DRAIN}" and res.drained,
+              f"drain: supervised run {out}")
+        check([f["error"] for f in sup.failures] == [
+            f"InjectedCrash: injected crash at checkpoint post_tmp (step "
+            f"{RECOVERY_CRASH})"], f"drain: failures {sup.failures}")
+        check(first["tmp_left"] and first["latest"] == RECOVERY_CKPT_INTERVAL
+              and first["restored"] == RECOVERY_CKPT_INTERVAL,
+              f"drain: restart {first}")
+        ring_dir = Path(ckpt_dir) / "ring"
+        spilled = [s.step for s in first["ring"]]
+        check(sorted(p.name for p in ring_dir.iterdir()) == [
+            f"step_{s:012d}" for s in spilled] and len(spilled) == 2,
+            f"drain: ring dir {sorted(p.name for p in ring_dir.iterdir())}")
+        check(latest_step(ckpt_dir) == RECOVERY_DRAIN, "drain: checkpoint")
+        spill_bytes = sum(_dir_bytes(p) for p in ring_dir.iterdir())
+        disk = sum(_dir_bytes(p) for p in Path(ckpt_dir).iterdir()
+                   if p.is_dir() and p != ring_dir) + spill_bytes
+
+        # a resume with recovery refills the ring; two NaNs at one step
+        # roll back to the run-start snapshot, then to a refilled one
+        inj2 = FaultInjector.from_cli(RECOVERY_AFTER_RESUME, seed=SEED)
+        tr = Trainer(tc, eval_batch=EVAL_BATCH, recovery=rc,
+                     fault_injector=inj2, device="cuda")
+        probe = _Probe(tr)
+        try:
+            check(tr.resume() == RECOVERY_DRAIN, "drain: resume")
+            loaded = list(tr.recovery.ring)
+            check([s.step for s in loaded] == spilled,
+                  f"drain: refilled {[s.step for s in loaded]}")
+            for a, b in zip(first["ring"], loaded):
+                check(a.tokens_seen == b.tokens_seen
+                      and all(torch.equal(x, y) for x, y in zip(
+                          tree_leaves(a.state), tree_leaves(b.state))),
+                      f"drain: refilled snapshot {b.step} != spilled")
+            del first["ring"]
+            res2 = tr.run(max_steps=5)
+            restored_snap = probe.restored_from
+            launches = {n: f.launches for n, f in kernels.items()}
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            probe.close()
+            del tr
+        torch.cuda.empty_cache()
+        want_events = ["nan_loss@18(loss=nan)", f"restored@{RECOVERY_DRAIN}",
+                       "nan_loss@18(loss=nan)", f"restored@{spilled[-1]}"]
+        check(res2.recovery_events == want_events and not res2.diverged,
+              f"drain: after the resume {res2.recovery_events}")
+        check(any(restored_snap is s for s in loaded),
+              "drain: the last restore was not a refilled snapshot")
+        check(_run_shapes(res) | _run_shapes(res2) <= checked,
+              "drain: shapes not checked")
+        # executed: the crashed run's steps, the restart's, the resumed run's
+        executed = (RECOVERY_CRASH + len(res.loss_history)
+                    + len(res2.loss_history))
+        want = _want_launches(train_config().model.n_layers, executed,
+                              len(res.val_ppl_history)
+                              + len(res2.val_ppl_history))
+        check(launches == want, f"drain: launches {launches} != {want}")
+        check(peak <= PEAK_SLACK * train_peak, f"drain: peak {peak}")
+        return {"failures": [f["error"] for f in sup.failures],
+                "restart_from": first["restored"],
+                "tmp_left_behind": first["tmp_left"],
+                "ring_spilled": spilled, "ring_spill_ms": first["spill_ms"],
+                "ring_spill_bytes": spill_bytes,
+                "ring_load_ms": probe.load, "disk_bytes": disk,
+                "events_after_resume": res2.recovery_events,
+                "steps_executed": executed, "launches": launches,
+                "max_memory_allocated": peak,
+                "restart": {k: v for k, v in first.items()
+                            if k not in ("result", "tmp_left", "latest")},
+                "after_resume": _ring_stats(probe)}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _recovery_precursor(checked, train_peak) -> dict:
+    """Arm 4: GNS with recovery on the reference's precursor scenario;
+    every precursor event pushes a snapshot and cools the LR."""
+    from repro_torch.core.recovery import RecoveryConfig
+    from repro_torch.distributed.fault_injection import FaultInjector
+    from repro_torch.distributed.fault_tolerance import RetryPolicy
+    from repro_torch.launch.train import Trainer
+    tc = telemetry_arms()["gns"][0]
+    rec = _recorder()
+    tr = Trainer(tc, eval_batch=EVAL_BATCH, hooks=[rec], device="cuda",
+                 recovery=RecoveryConfig(policy=RetryPolicy(max_retries=3)),
+                 fault_injector=FaultInjector.from_cli(RECOVERY_PRECURSOR,
+                                                       seed=SEED))
+    probe = _Probe(tr)
+    reg = tr.stack["recovery"]
+    plans = []  # (lr in, lr out, lr_scale, cool_scale, cool_ttl) a step
+    reg_plan = reg.plan
+
+    def plan(tele, p):
+        lr_in, state = p.lr, (reg.lr_scale, reg.cool_scale, reg.cool_ttl)
+        out = reg_plan(tele, p)
+        plans.append((lr_in, out.lr, *state))
+        return out
+    reg.plan = plan
+    kernels = _fa_kernels()
+    try:
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = tr.run()
+        launches = {n: f.launches for n, f in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        probe.close()
+        del reg.plan, tr, reg
+    torch.cuda.empty_cache()
+    passes = sum(b // _shard_rows(tc.gns, b) for b in res.batch_history)
+    _arm_common("precursor", res, launches, peak, train_peak, checked,
+                passes=passes)
+    check(res.steps == TRAIN_STEPS and not res.diverged,
+          f"precursor: {res.steps} steps, diverged {res.diverged}")
+    shapes = {(_shard_rows(tc.gns, b), s) for b, s in zip(
+        res.batch_history, res.seqlen_history)} | {(EVAL_BATCH, S_TRAIN)}
+    check(shapes <= checked, f"precursor: shapes {shapes - checked}")
+    check([e for e, *_ in probe.precursor] == res.precursor_events,
+          "precursor: an event did not reach the controller")
+    for event, step, newest, _ in probe.precursor:
+        check(newest == step, f"precursor: {event} at step {step}, newest "
+              f"snapshot {newest}")
+    factor, ttl = (tc.gns.precursor_cooldown_factor,
+                   tc.gns.precursor_cooldown_steps)
+    check(len(plans) == len(res.lr_history) and all(
+        out == lr for (_, out, *_), lr in zip(plans, res.lr_history)),
+        "precursor: the planned LRs are not the steps' LRs")
+    # the ttl executed steps after each event (a window that a rollback
+    # cuts is reported, not held: the restore merges the cool-down state)
+    order = [r["step"] for r in rec.rows]
+    cooled = []
+    for event, _, _, j in probe.precursor:
+        window = list(range(j + 1, min(j + 1 + ttl, len(plans))))
+        cut = any(order[i] <= order[i - 1] for i in window)
+        held = all(plans[i][1] == plans[i][0] * (plans[i][2] * factor)
+                   and plans[i][4] > 0 for i in window)
+        check(cut or held, f"precursor: {event}: the LR of the next {ttl} "
+              f"steps is not the planned LR x {factor}")
+        cooled.append({"event": event, "steps": len(window), "cut": cut})
+    events = [e for e in res.recovery_events
+              if not e.startswith(("precursor@", "restored@"))]
+    pre = [int(e.split("@")[1].split("(")[0]) for e in res.precursor_events]
+    det = [int(e.split("@")[1].split("(")[0]) for e in events]
+    return {"precursor_events": res.precursor_events,
+            "recovery_events": res.recovery_events,
+            "rollbacks": res.rollbacks, "cooled_windows": cooled,
+            "precursor_before_detector": bool(pre and (not det
+                                                       or pre[0] < det[0])),
+            "steps_executed": len(res.loss_history), "launches": launches,
+            "max_memory_allocated": peak, **_ring_stats(probe),
+            "wall_s": res.wall_time_s}
+
+
+def phase_recovery(dev: dict, checked: set, train: dict) -> dict:
+    """Divergence recovery and fault injection on full-width gpt2-117m
+    through the flash kernels: the kernels' NaN propagation, then the four
+    arms (fault matrix, exact replay, crash/drain/ring, precursor)."""
+    nan = check_nan_propagation()
+    torch.cuda.empty_cache()
+    clean, train_peak = train["result"], train["peak"]
+    arms = {"matrix": _recovery_matrix(checked, train_peak)}
+    arms["replay"] = _recovery_replay(checked, train_peak, clean)
+    arms["drain"] = _recovery_drain(checked, train_peak)
+    arms["precursor"] = _recovery_precursor(checked, train_peak)
+    total = {name: sum(a["launches"][name] for a in arms.values())
+             for name in _fa_kernels()}
+    emit("recovery", card=dev["nvidia_smi"], nan_propagation=nan,
+         train_tokens_per_s_full_length=train["tokens_per_s"],
+         train_max_memory_allocated=train_peak, arms=arms, launches=total)
     return total
 
 
@@ -3571,12 +4233,13 @@ def main() -> int:
     from repro_torch.core.regulators import predict_trajectory
     train_shapes = {(p.batch_size, p.seq_len) for p in predict_trajectory(
         train_config(), TRAIN_STEPS)} | {(EVAL_BATCH, S_TRAIN)}
-    train_shapes |= paper_shapes() | telemetry_shapes()
+    train_shapes |= paper_shapes() | telemetry_shapes() | recovery_shapes()
     bwd_timing, bwd_checked = phase_flash_attention_bwd(train_shapes)
     train = phase_train(dev, bwd_checked)
     phase_train_parity(train)
     train_launches = train["launches"]
     train_tokens_s = train["tokens_per_s"]
+    clean = {k: train[k] for k in ("result", "peak", "tokens_per_s")}
     del train
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -3588,10 +4251,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     tg_launches = phase_telemetry_gns(dev, bwd_checked, train_tokens_s)
     torch.cuda.empty_cache()
-    # every trainer of the three phases is gone, its state off the card
+    recovery_launches = phase_recovery(dev, bwd_checked, clean)
+    del clean
+    torch.cuda.empty_cache()
+    # every trainer of the four phases is gone, its state off the card
     left = torch.cuda.memory_allocated() - held
-    check(left < 2**26, f"phases paper, checkpoint and telemetry_gns left "
-          f"{left} bytes allocated on the card")
+    check(left < 2**26, f"phases paper, checkpoint, telemetry_gns and "
+          f"recovery left {left} bytes allocated on the card")
     bf16_launches = phase_grads_bf16()
     torch.cuda.empty_cache()
 
@@ -3630,7 +4296,7 @@ def main() -> int:
     by_path = {"serve": serve_launches, "serve_paged": paged_launches,
                "router": router_launches, "train": train_launches,
                "paper": paper_launches, "checkpoint": ckpt_launches,
-               "telemetry_gns": tg_launches,
+               "telemetry_gns": tg_launches, "recovery": recovery_launches,
                "grads_bf16": bf16_launches,
                **rwkv_serve, "train_rwkv": rwkv_train, **zamba_serve,
                "train_zamba": zamba_train}

@@ -21,8 +21,10 @@ subtree, as in ``jax.tree_util`` (Shampoo's statistics of an ineligible
 leaf).  A leaf's key is its
 path joined by ``/``, the JAX package's key.  The trainer writes its state
 in the JAX layout (``repro_torch.bridge.train_state_to_numpy``), so a
-checkpoint written by either package restores in the other.  The
-reference's two crash points (fault injection) are not ported yet.
+checkpoint written by either package restores in the other.  ``save``
+calls ``distributed.fault_injection.checkpoint_crash_point`` at the
+reference's two crash points: ``post_tmp`` (payload and manifest written,
+before the rename) and ``post_rename`` (after it).
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.fault_injection import checkpoint_crash_point
 
 
 class CheckpointCorruption(ValueError):
@@ -108,9 +112,11 @@ def save(directory: str, step: int, tree: Any,
         json.dump(manifest, f)
         f.flush()
         os.fsync(f.fileno())
+    checkpoint_crash_point("post_tmp", step)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    checkpoint_crash_point("post_rename", step)
     return final
 
 

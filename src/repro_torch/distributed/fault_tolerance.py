@@ -93,7 +93,10 @@ class StepWatchdog:
 
 @dataclass(frozen=True)
 class RetryPolicy:
-    """How many times to retry and how long to wait before each retry."""
+    """How many times to retry and how long to wait before each retry: the
+    one policy of process-level restarts (:class:`TrainSupervisor`) and
+    in-process rollbacks (``core.recovery.RollbackController``), so the two
+    layers are budgeted alike."""
 
     max_retries: int = 3
     backoff_s: float = 0.0       # base sleep before retry 1 (0 = none)

@@ -10,8 +10,9 @@ inner-product sketch at O(n) compute and O(d) memory);
 sketches and fires a :class:`PrecursorEvent` when a leaf's mean lagged
 autocorrelation exceeds an absolute gate AND has risen over its own
 trailing baseline.  :class:`PrecursorHook` records each event on
-``TrainResult.precursor_events`` and, with a recovery controller, hands
-it on (the controller comes with recovery; until then it is ``None``).
+``TrainResult.precursor_events`` and, with recovery on, hands it to the
+rollback controller (``core.recovery``: a snapshot now and a temporary LR
+cool-down).
 """
 from __future__ import annotations
 
@@ -122,10 +123,9 @@ class PrecursorHook:
 
     Feeds the precursor from the per-leaf sketch riding
     ``StepTelemetry.per_leaf`` and records each event on
-    ``TrainResult.precursor_events``.  A ``controller`` (the rollback
-    controller of divergence recovery, which comes with that slice) also
-    gets the event through ``handle_precursor``; the port's trainer passes
-    ``None``.
+    ``TrainResult.precursor_events``.  A ``controller`` (the trainer's
+    ``core.recovery.RollbackController`` when recovery is on, else
+    ``None``) also gets the event through ``handle_precursor``.
     """
 
     def __init__(self, precursor: GradientPrecursor, controller=None,

@@ -67,6 +67,17 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// max(a, b) that returns NaN when either is NaN (max.NaN.f32): fmaxf drops
+// a NaN operand, so a NaN score would leave the running max, l and lse
+// finite where the plain version (torch.amax) and the reference
+// (jnp.maximum) give NaN.  One instruction, as fmaxf, and the same value
+// as fmaxf on any two numbers (up to the sign of a zero).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(y) : "f"(a), "f"(b));
+  return y;
+}
+
 // ---------------------------------------------------------------------------
 // copies
 // ---------------------------------------------------------------------------
@@ -290,15 +301,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (col >= kv_end || (causal && col > row0 + 8 * (e / 2)))
             sc[j][e] = neg_inf();
         }
-        mx[e / 2] = fmaxf(mx[e / 2], sc[j][e]);
+        mx[e / 2] = max_nan(mx[e / 2], sc[j][e]);
       }
     }
     float corr[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      mx[r] = max_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = max_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = max_nan(m[r], mx[r] * scale_log2);
       corr[r] = ex2(m[r] - m_new);  // a difference <= 0
       m[r] = m_new;
       l[r] *= corr[r];
@@ -338,7 +349,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = row0 + 8 * r;
     if (row < s) {
-      const float lc = fmaxf(l[r], 1e-30f);
+      const float lc = max_nan(l[r], 1e-30f);
       T* orow = o + head + (int64_t)row * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < NO; ++n)

@@ -16,6 +16,9 @@ Usable as a library (``train(tc, ...)``, ``Trainer``) and as a CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 12 --seq 64 --batch 4 --slw --per-leaf-telemetry --gns \\
       --gns-batch --metrics-jsonl /tmp/m.jsonl [--optimizer sm3|shampoo]
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+      --steps 12 --seq 64 --batch 4 --slw --recover --max-rollbacks 2 \\
+      --inject-faults nan_grad@4 --inject-seed 3
 
 The loop is the paper's joint recipe: the regulator stack plans the step
 (seqlen bucket, batch size, LR, grad-clip scale) -> the full-length host
@@ -35,8 +38,11 @@ schedule, from a checkpoint of either package; ``resume`` restores onto
 the trainer's device.  Per-leaf telemetry (``--per-leaf-telemetry``), the
 gradient-noise-scale measurement (``--gns``), its critical-batch regulator
 (``--gns-batch``) and precursor, and the optimizer chain's SM3, Shampoo
-and AGC options run as in the reference.  Divergence recovery and fault
-injection are not ported yet: their options raise.
+and AGC options run as in the reference.  So do divergence recovery
+(``--recover``: ``core.recovery``'s rollback controller, its snapshot ring
+spilled next to the checkpoint on drain and refilled on resume; the
+precursor hands its events to it) and deterministic fault injection
+(``--inject-faults``: ``distributed.fault_injection``).
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -58,12 +65,17 @@ from repro_torch.configs.base import (BatchWarmupConfig, GNSConfig,
                                       OptimizerConfig, RegulatorSpec,
                                       SLWConfig, TrainConfig)
 from repro_torch.core import telemetry as telemetry_lib
+from repro_torch.core.recovery import (RecoveryConfig, RecoveryHook,
+                                       RecoveryRegulator, RollbackController)
 from repro_torch.core.regulators import (ControllerState, RegulatorStack,
                                          StepPlan, StepTelemetry, auto_specs,
                                          build_stack)
 from repro_torch.core.stability import LossRatioTracker
 from repro_torch.data import DataPipeline, SyntheticCorpus
-from repro_torch.distributed.fault_tolerance import DrainSignal, StepWatchdog
+from repro_torch.distributed.fault_injection import (FaultInjectionHook,
+                                                     FaultInjector)
+from repro_torch.distributed.fault_tolerance import (DrainSignal, RetryPolicy,
+                                                     StepWatchdog)
 from repro_torch.kernels import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model_zoo
@@ -90,6 +102,10 @@ class TrainResult:
     # distinct batch shapes the loop ran (the reference's jit compiles)
     n_compiles: int = 0
     restored_from_step: Optional[int] = None
+    # divergence-aware recovery accounting (core.recovery)
+    rollbacks: int = 0
+    recovery_events: List[str] = field(default_factory=list)
+    faults_fired: List[str] = field(default_factory=list)
     # gradient-direction early warnings (repro_torch.gns.precursor)
     precursor_events: List[str] = field(default_factory=list)
 
@@ -267,7 +283,8 @@ class Trainer:
     state over).  ``fail_at_step`` raises before that step runs (the
     fault-tolerance drills).  With ``tc.gns`` enabled and a precursor
     window, a :class:`repro_torch.gns.PrecursorHook` records the
-    precursor's events on ``result.precursor_events``.
+    precursor's events on ``result.precursor_events`` and hands them to
+    the rollback controller when recovery is on.
     """
 
     def __init__(self, tc: TrainConfig, *, dp_size: int = 1,
@@ -277,9 +294,14 @@ class Trainer:
                                              None]] = None,
                  fail_at_step: Optional[int] = None, quiet: bool = True,
                  hooks: Optional[List[TrainerHook]] = None,
+                 recovery: Optional[RecoveryConfig] = None,
+                 fault_injector: Optional[FaultInjector] = None,
                  device: str = "cuda"):
         """``hooks`` are appended after the default set (drain, watchdog,
-        telemetry, eval, checkpoint)."""
+        telemetry, eval, checkpoint, then recovery and fault injection).
+        ``recovery`` turns on the in-process rollback controller
+        (``core.recovery``); ``fault_injector`` arms deterministic fault
+        injection for the run (``distributed.fault_injection``)."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # fp32 means fp32: no TF32 in matmuls or convolutions
@@ -317,14 +339,38 @@ class Trainer:
         self._drain_requested = False
         self._last = StepTelemetry()
         self._seen_shapes = set()
+        # set by the fault injector (grad_spike) for the next step only
+        self.fault_injector = fault_injector
+        self._pending_grad_fault: Optional[Tuple[float, str]] = None
+
+        # divergence recovery: the intervention regulator joins the end of
+        # the stack (its state checkpoints through ControllerState) and the
+        # rollback controller rides the hook list
+        self.recovery: Optional[RollbackController] = None
+        self._recovery_reg: Optional[RecoveryRegulator] = None
+        self._ring_dir = ""
+        if recovery is not None:
+            ladder = (self.stack["seqlen"].curriculum.ladder
+                      if "seqlen" in self.stack else (tc.seq_len,))
+            self._recovery_reg = RecoveryRegulator(ladder, recovery)
+            self.stack.regulators.append(self._recovery_reg)
+            self.recovery = RollbackController(recovery)
+            self._ring_dir = recovery.ring_dir or (
+                os.path.join(tc.checkpoint_dir, "ring")
+                if tc.checkpoint_dir else "")
+
         self.hooks: List[TrainerHook] = [
             DrainHook(drain), WatchdogHook(), TelemetryHook(callback),
             EvalHook(eval_batch=eval_batch, quiet=quiet), CheckpointHook()]
+        if self.recovery is not None:
+            self.hooks.append(RecoveryHook(self.recovery))
+        if fault_injector is not None:
+            self.hooks.append(FaultInjectionHook(fault_injector))
         if tc.gns.enabled and tc.gns.precursor_window > 0:
             from repro_torch.gns.precursor import (GradientPrecursor,
                                                    PrecursorHook)
             self.hooks.append(PrecursorHook(
-                GradientPrecursor(tc.gns), controller=None,
+                GradientPrecursor(tc.gns), controller=self.recovery,
                 cool=(tc.gns.precursor_cooldown_factor,
                       tc.gns.precursor_cooldown_steps)))
         self.hooks += list(hooks or [])
@@ -370,6 +416,12 @@ class Trainer:
         self.load_controller_state(ControllerState.from_host(
             host["controller"]))
         self.result.restored_from_step = got_step
+        # a drained run spilled its rollback ring next to the checkpoint:
+        # refill it, so recovery resumes with the same restore points
+        if self.recovery is not None and self._ring_dir \
+                and os.path.isdir(self._ring_dir):
+            self.recovery.ring.load(self._ring_dir, self.tc.model,
+                                    self.tc.optimizer)
         return got_step
 
     def to_device(self, batch: Dict[str, np.ndarray]
@@ -388,16 +440,34 @@ class Trainer:
         tele = dataclasses.replace(self._last, step=self.step,
                                    tokens_seen=self.tokens_seen)
         plan = self.stack.plan(tele)
-        batch = self.pipeline.batch_at(self.step)
+        # the recovery regulator's data offset skips a data window the
+        # rollback controller blamed for a divergence
+        offset = (self._recovery_reg.data_offset
+                  if self._recovery_reg is not None else 0)
+        batch = self.pipeline.batch_at(self.step + offset)
         batch, tokens_step = self.stack.apply(batch, plan)
         shape_key = tuple(sorted((k, v.shape) for k, v in batch.items()))
         if shape_key not in self._seen_shapes:
             self._seen_shapes.add(shape_key)
             self.result.n_compiles += 1
+        # the runtime vectors go in only while active, so a clean step is
+        # the step without them: a grad_spike fault's one-step multiplier
+        # on the raw per-leaf gradients, the per-leaf LR backoff
+        extra: Dict[str, Any] = {}
+        if self._pending_grad_fault is not None \
+                and self.fault_injector is not None:
+            factor, substr = self._pending_grad_fault
+            self._pending_grad_fault = None
+            extra["grad_scale"] = self.fault_injector.grad_scale_vector(
+                self.leaf_labels, self.step, factor, substr)
+        if self._recovery_reg is not None \
+                and self._recovery_reg.leaf_lr_scales:
+            extra["leaf_lr"] = self._recovery_reg.leaf_lr_vector(
+                self.leaf_labels)
         # the reference hands the step np.float32 scalars
         self.state, out = self.step_fn(
             self.state, self.to_device(batch), float(np.float32(plan.lr)),
-            float(np.float32(plan.grad_clip_scale)))
+            float(np.float32(plan.grad_clip_scale)), **extra)
         # one transfer: the scalars as floats, the per-leaf vectors apart
         metrics, per_leaf = telemetry_lib.split_metrics(out)
         loss = metrics["loss"]
@@ -436,6 +506,10 @@ class Trainer:
                     h.on_step_start(self)
                 if self._drain_requested:
                     self.save_checkpoint()
+                    # the rollback ring goes next to the checkpoint, so its
+                    # restore points survive the preemption
+                    if self.recovery is not None and self._ring_dir:
+                        self.recovery.ring.save(self._ring_dir, self.tc.model)
                     self.result.drained = True
                     break
                 if (self.fail_at_step is not None
@@ -470,13 +544,18 @@ def train(tc: TrainConfig, max_steps: Optional[int] = None,
           callback: Optional[Callable[[int, Dict[str, float]], None]] = None,
           fail_at_step: Optional[int] = None, quiet: bool = True,
           dp_size: int = 1, hooks: Optional[List[TrainerHook]] = None,
+          recovery: Optional[RecoveryConfig] = None,
+          fault_injector: Optional[FaultInjector] = None,
           device: str = "cuda") -> TrainResult:
     """Run the training loop on ``device``; returns full telemetry.
     ``resume`` restores the newest valid checkpoint of
-    ``tc.checkpoint_dir`` first; ``fail_at_step`` injects a crash."""
+    ``tc.checkpoint_dir`` first; ``fail_at_step`` injects a crash,
+    ``fault_injector`` the step-indexed fault matrix, and ``recovery``
+    turns on divergence rollback."""
     trainer = Trainer(tc, dp_size=dp_size, eval_batch=eval_batch,
                       stop_on_nan=stop_on_nan, drain=drain, callback=callback,
                       fail_at_step=fail_at_step, quiet=quiet, hooks=hooks,
+                      recovery=recovery, fault_injector=fault_injector,
                       device=device)
     if resume:
         trainer.resume()
@@ -487,17 +566,7 @@ def train(tc: TrainConfig, max_steps: Optional[int] = None,
 # CLI
 # ---------------------------------------------------------------------------
 
-# flags of the reference CLI whose features are not ported yet (divergence
-# recovery and fault injection): any value but the default raises
-NOT_PORTED = {"recover": False, "inject_faults": "", "max_rollbacks": 3,
-              "inject_seed": 0}
-
-
 def build_config(args) -> TrainConfig:
-    for name, default in NOT_PORTED.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet")
     cfg = get_arch(args.arch)
     cfg = reduce_cfg(cfg) if args.reduced else cfg
     if args.vocab:
@@ -612,20 +681,33 @@ def main(argv=None) -> int:
     p.add_argument("--metrics-jsonl", default="",
                    help="append per-step StepPlan/StepTelemetry rows to "
                         "this JSONL file")
-    p.add_argument("--recover", action="store_true", help="not ported yet")
+    p.add_argument("--recover", action="store_true",
+                   help="divergence-aware recovery: detect NaN, spike and "
+                        "variance excursions, roll back to an in-run "
+                        "snapshot, intervene (LR backoff -> seq clamp -> "
+                        "data skip)")
     p.add_argument("--max-rollbacks", type=int, default=3,
-                   help="not ported yet")
-    p.add_argument("--inject-faults", default="", help="not ported yet")
+                   help="in-process rollback budget before hard failure")
+    p.add_argument("--inject-faults", default="",
+                   help="deterministic fault matrix, e.g. "
+                        "'nan_grad@12,spike@20:8.0,crash@30:post_tmp,"
+                        "stall@8:0.25' (kind@step[:arg], comma-separated)")
     p.add_argument("--inject-seed", type=int, default=0,
-                   help="not ported yet")
+                   help="seed for fault placement (which leaf, which byte)")
     args = p.parse_args(argv)
 
     tc = build_config(args)
     resolve_device(args.device)  # before the drain handlers are installed
     hooks = ([MetricsJsonlHook(args.metrics_jsonl)]
              if args.metrics_jsonl else None)
+    recovery = (RecoveryConfig(policy=RetryPolicy(
+        max_retries=args.max_rollbacks)) if args.recover else None)
+    injector = (FaultInjector.from_cli(args.inject_faults,
+                                       seed=args.inject_seed)
+                if args.inject_faults else None)
     res = train(tc, resume=args.resume, drain=DrainSignal(), quiet=False,
-                dp_size=args.dp_size, hooks=hooks, device=args.device)
+                dp_size=args.dp_size, hooks=hooks, recovery=recovery,
+                fault_injector=injector, device=args.device)
     print(f"\ndone: steps={res.steps} tokens={res.tokens} "
           f"diverged={res.diverged} compiles={res.n_compiles}")
     if res.restored_from_step is not None:
@@ -634,6 +716,9 @@ def main(argv=None) -> int:
     print("watchdog:", res.watchdog_summary)
     if tc.gns.enabled:
         print(f"precursor: events={res.precursor_events}")
+    if recovery is not None or injector is not None:
+        print(f"recovery: rollbacks={res.rollbacks} "
+              f"events={res.recovery_events} faults={res.faults_fired}")
     return 0 if not res.diverged else 1
 
 

@@ -187,12 +187,21 @@ def test_examples_run_on_the_cpu_when_asked(capsys, name):
 
 def test_train_cli_refuses_what_is_not_ported():
     from repro_torch.launch import train
-    for flags in (["--recover"], ["--remat", "dots"],
-                  ["--inject-faults", "spike@2:8.0"],
-                  ["--max-rollbacks", "1"], ["--inject-seed", "7"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train.main(["--reduced", "--device", "cpu", "--steps", "1",
-                        "--batch", "2", "--seq", "16", *flags])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train.main(["--reduced", "--device", "cpu", "--steps", "1",
+                    "--batch", "2", "--seq", "16", "--remat", "dots"])
+
+
+def test_train_cli_recovers_from_an_injected_fault(capsys):
+    from repro_torch.launch import train
+    assert train.main(["--reduced", "--device", "cpu", "--steps", "8",
+                       "--batch", "2", "--seq", "16", "--recover",
+                       "--max-rollbacks", "2", "--inject-faults",
+                       "nan_grad@4", "--inject-seed", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "done: steps=8" in out and "diverged=False" in out
+    assert ("recovery: rollbacks=1 events=['nan_loss@4(loss=nan)', "
+            "'restored@0'] faults=['nan_grad@4']") in out
 
 
 def test_train_cli_runs_on_the_cpu_when_asked(capsys):
