@@ -70,7 +70,7 @@ weights from a seed:
 * RWKV-6: the WKV-6 forward and backward kernels against their plain
   versions (and the backward against autograd through the plain forward)
   at every shape the RWKV paths give them, then full-width rwkv6-7b cut
-  to 16 of its 32 layers served from 8 slots (launch counts, greedy streams against the
+  to 8 of its 32 layers served from 8 slots (launch counts, greedy streams against the
   plain reference backend, the router with a paged replica and a
   migration each way), and rwkv6-7b at full width cut to 4 layers trained
   for 20 SLW steps (finite losses, the plans of ``predict_trajectory``,
@@ -83,13 +83,32 @@ weights from a seed:
   the autograd Function's reductions, against the plain reverse scan and
   against autograd through the plain forward) at every shape the zamba
   paths give them, cum past -1000 included; then full-width zamba2-2.7b
-  cut to 18 of its 54 layers served from 8 slots (launch counts, greedy streams against
+  cut to 12 of its 54 layers served from 8 slots (launch counts, greedy streams against
   the plain reference backends, the router with a replica whose shared
   attention KV really lives in pages, and a migration each way), and
   trained at full depth with remat "full" for 20 SLW steps (finite
   losses, plans, launch counts, every gradient leaf of two batches and 8
   steps' losses against the reference SSD backend, and a planted fault in
-  the backward that the gradient check must catch).
+  the backward that the gradient check must catch);
+* deepseek-moe-16b (the MoE family): the flash kernels at head dim 128
+  (forward at every prefill, forward and backward at every training
+  shape), the GQA Function at the other presets' (D, G) and the decode
+  kernels, dense and paged, at (128, 1), (128, 4), (128, 6), (64, 3) and
+  (80, 8); then the model at full width and all 28 layers (67.5 GB of fp32
+  weights drawn on the card) served from 8 slots (launch counts, greedy
+  streams against a twin engine with the plain backends on the same
+  weight tensors, its top-k routing pinned to the kernel engine's, the
+  prefills' dropped fraction, the idle share of a decode window), and at
+  full width cut to 4 layers trained for 20 SLW steps with remat "full"
+  (plans, finite losses, launch counts, the router's metrics a step,
+  every gradient leaf of two batches against the blockwise backend under
+  pinned routing, and a planted fault in the backward that the gradient
+  check must catch).
+
+A NaN planted in q, k or v must leave the flash forward and backward
+kernels' and the two decode kernels' outputs non-finite wherever their
+plain versions' are (``check_nan_propagation``,
+``check_decode_nan_propagation``).
 
 Phases print one line each.  The second-to-last line lists each kernel
 with its error, times and bound; the last line is
@@ -99,6 +118,7 @@ JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -368,7 +388,7 @@ def _instance(mangled: str, kernel: str) -> str:
         if kernel == "ssd_chunk_state_kernel":
             return f"{kernel}<{t},{'fwd' if 'Lb1E' in mangled else 'bwd'}>"
         return f"{kernel}<{t}>"
-    d = "128" if "Li128E" in mangled else "64"
+    d = re.search(r"Li(\d+)E", mangled).group(1)
     return f"{kernel}<{t},{d}>"
 
 
@@ -398,7 +418,7 @@ def phase_fa_design(build: dict) -> dict:
     be read."""
     found = _tensor_core_instances(build, FA_TENSOR_CORE_KERNELS)
     want = {f"{k}<{t},{d}>" for ks in FA_TENSOR_CORE_KERNELS.values()
-            for k in ks for t in ("f32", "bf16") for d in (64, 128)}
+            for k in ks for t in ("f32", "bf16") for d in (64, 80, 128)}
     check(set(found) == want, f"kernel instances {sorted(found)} != "
                               f"{sorted(want)}")
     ssd = _tensor_core_instances(build, SSD_TENSOR_CORE_KERNELS)
@@ -427,9 +447,10 @@ DECODE_INSTANCE = re.compile(
 PTXAS_USE = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                        r"(\d+) bytes spill loads.*Used (\d+) registers")
 # the instances the serving paths run: fp32, G 1, gpt2's D 64 and zamba2's
-# D 80, dense and paged
+# D 80, dense and paged; deepseek-moe-16b's D 128, dense
 DECODE_PATH_INSTANCES = {f"decode_kernel<f32,{d},1,{kind}>" for d in (64, 80)
-                         for kind in ("dense", "paged")}
+                         for kind in ("dense", "paged")} | {
+    "decode_kernel<f32,128,1,dense>"}  # deepseek-moe-16b's
 
 
 def phase_decode_design(build: dict) -> dict:
@@ -507,9 +528,9 @@ def check_rerun(fn, what: str) -> bool:
     return True
 
 
-def _attn_inputs(b, s, dtype, seed):
+def _attn_inputs(b, s, dtype, seed, h=H, d=D):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(b * H, s, D, device="cuda", generator=gen).to(dtype)
+    return [torch.randn(b * h, s, d, device="cuda", generator=gen).to(dtype)
             for _ in range(3)]
 
 
@@ -1168,7 +1189,8 @@ def _causal_pairs(bh: int, s: int) -> int:
     return bh * s * (s + 1) // 2
 
 
-def _bwd_bounds(bh: int, s: int, tensor_cores: bool = True) -> dict:
+def _bwd_bounds(bh: int, s: int, tensor_cores: bool = True,
+                d: int = D) -> dict:
     """(least ms, what bounds it) of each backward kernel and of all three,
     fp32, causal over the whole length: each input read once and each
     output written once; 2 D operations per (query, key) pair below the
@@ -1176,15 +1198,15 @@ def _bwd_bounds(bh: int, s: int, tensor_cores: bool = True) -> dict:
     kernel: S, dP, dV, dK; five distinct), as three TF32 products on the
     tensor cores (:func:`tc_bound`) or on the CUDA cores.  The delta
     kernel runs on the CUDA cores."""
-    row, tile = bh * s * 4, bh * s * D * 4
-    pair_ops = 2 * D * _causal_pairs(bh, s)
+    row, tile = bh * s * 4, bh * s * d * 4
+    pair_ops = 2 * d * _causal_pairs(bh, s)
     f32 = torch.float32
     bound_fn = (tc_bound if tensor_cores
                 else lambda nbytes, flops: bound(nbytes, flops, f32))
-    return {"preprocess": bound(2 * tile + row, 2 * bh * s * D, f32),
+    return {"preprocess": bound(2 * tile + row, 2 * bh * s * d, f32),
             "dq": bound_fn(5 * tile + 2 * row, 3 * pair_ops),
             "dkv": bound_fn(6 * tile + 2 * row, 4 * pair_ops),
-            "all": bound_fn(8 * tile + row, 5 * pair_ops + 2 * bh * s * D)}
+            "all": bound_fn(8 * tile + row, 5 * pair_ops + 2 * bh * s * d)}
 
 
 def phase_flash_attention_bwd(shapes) -> tuple:
@@ -1800,7 +1822,9 @@ def phase_checkpoint(dev: dict, paper_out: dict, checked: set) -> dict:
 
 # phase telemetry_gns: per-leaf telemetry, the GNS step and the optimizer
 # extras at full gpt2-117m width on train_config()'s joint recipe
-GNS_STEPS, OPT_STEPS, SHAMPOO_INTERVAL = 30, 10, 3
+# Shampoo's arm runs 4 steps (refreshes at steps 0 and 3) since the MoE
+# phases came: each refresh takes ~14 s of host-bound eigh
+GNS_STEPS, OPT_STEPS, SHAMPOO_STEPS, SHAMPOO_INTERVAL = 30, 10, 4, 3
 GNS_SHARDS, GNS_WINDOW, GNS_DIM, GNS_MIN_BATCH = 4, 12, 16, 2
 # the reference's labels of gpt2-117m (repro.core.telemetry.param_labels;
 # tests/test_torch_telemetry.py holds the port's equal to them)
@@ -1833,7 +1857,7 @@ def telemetry_arms() -> dict:
     recipe of train_config() with per-leaf telemetry and GNS (4 shards,
     precursor window 12, sketch dim 16); the same with the critical_batch
     regulator from 2 rows; and SM3 and Shampoo (refresh every 3 steps)
-    with per-leaf telemetry, 10 steps, one eval each."""
+    with per-leaf telemetry, 10 and 4 steps, one eval each."""
     from repro_torch.configs import GNSConfig, RegulatorSpec
     from repro_torch.core.regulators import auto_specs
     base = train_config()
@@ -1842,17 +1866,18 @@ def telemetry_arms() -> dict:
                     precursor_window=GNS_WINDOW, precursor_dim=GNS_DIM,
                     min_batch=GNS_MIN_BATCH)
     arm = dataclasses.replace(base, optimizer=per_leaf, gns=gns)
-    short = lambda opt: dataclasses.replace(
-        base, optimizer=opt, eval_interval=OPT_STEPS)
+    short = lambda opt, steps: dataclasses.replace(
+        base, optimizer=opt, eval_interval=steps)
     return {
         "gns": (arm, GNS_STEPS),
         "gns_batch": (dataclasses.replace(arm, regulators=auto_specs(arm) + (
             RegulatorSpec(kind="critical_batch"),)), GNS_STEPS),
-        "sm3": (short(dataclasses.replace(per_leaf, optimizer="sm3")),
-                OPT_STEPS),
+        "sm3": (short(dataclasses.replace(per_leaf, optimizer="sm3"),
+                      OPT_STEPS), OPT_STEPS),
         "shampoo": (short(dataclasses.replace(
             per_leaf, optimizer="shampoo",
-            shampoo_interval=SHAMPOO_INTERVAL)), OPT_STEPS)}
+            shampoo_interval=SHAMPOO_INTERVAL), SHAMPOO_STEPS),
+            SHAMPOO_STEPS)}
 
 
 def _shard_rows(gns, b: int) -> int:
@@ -2059,7 +2084,7 @@ def phase_telemetry_gns(dev: dict, checked: set, train_tokens_s: float
                 traj.append(est.b_noise if crit is None else crit[0])
             row["b_noise"] = traj
         if name == "shampoo":
-            # the refresh runs at Adam counts 1, 4, 7, 10: steps 0, 3, 6, 9
+            # the refresh runs at Adam counts 1, 4: steps 0, 3
             refresh = [durations[i] for i in range(0, steps,
                                                    SHAMPOO_INTERVAL)]
             rest = [durations[i] for i in range(steps)
@@ -2164,6 +2189,59 @@ def check_nan_propagation() -> dict:
                   f"finite at {missed} entries where the plain version's is "
                   f"not")
         del moved, p_nan, k_nan
+    return out
+
+
+def check_decode_nan_propagation(main_lengths, cache_len: int) -> dict:
+    """A NaN planted in one element of q, of one k row and of one v row of
+    slot 0 on the fused decode step's gpt2 shape (8 slots over
+    ``cache_len``, fp32), through the dense kernel and through the paged
+    one (its pool at ``paged_main_lengths``): each kernel's o, m and l are
+    non-finite wherever its plain version's are, among the outputs that
+    depend on the planted element (those the plain version changes when it
+    moves by 1)."""
+    from repro_torch.kernels.flash_decode import kernel as K
+    q, kc, vc, lengths = _decode_inputs(8, cache_len, 1, torch.float32,
+                                        main_lengths, 81)
+    pl, free = paged_main_lengths(main_lengths)
+    pq, pk, pv, table, plen = _paged_inputs(
+        pl, PAGE_SIZE, -(-cache_len // PAGE_SIZE), N_PAGES, 1,
+        torch.float32, 82, holes=[(i, 0) for i in free])
+    head, feat = 5, 17
+    row, prow = main_lengths[0] // 2, pl[0] // 2
+    page = (int(table[0, prow // PAGE_SIZE]), prow % PAGE_SIZE)
+    paths = {
+        "dense": (K.flash_decode_fwd_plain, K.flash_decode_fwd,
+                  lambda xs: (*xs, lengths), (q, kc, vc),
+                  ((0, head, 0, feat), (0, row, head, feat),
+                   (0, row, head, feat))),
+        "paged": (K.flash_decode_paged_fwd_plain, K.flash_decode_paged_fwd,
+                  lambda xs: (*xs, table, plen), (pq, pk, pv),
+                  ((0, head, 0, feat), (*page, head, feat),
+                   (*page, head, feat)))}
+    out = {}
+    for path, (plain, kernel, args, xs, wheres) in paths.items():
+        base = plain(*args(xs))
+        for i, name in enumerate("qkv"):
+            def planted(value):
+                ys = [t.clone() for t in xs]
+                ys[i][wheres[i]] = (value if value is not None
+                                    else ys[i][wheres[i]] + 1.0)
+                return ys
+            moved = plain(*args(planted(None)))
+            p_nan = plain(*args(planted(float("nan"))))
+            k_nan = kernel(*args(planted(float("nan"))))
+            torch.cuda.synchronize()
+            for j, out_name in enumerate("oml"):
+                want = ~torch.isfinite(p_nan[j]) & (base[j] != moved[j])
+                got = ~torch.isfinite(k_nan[j])
+                missed = int((want & ~got).sum())
+                out[f"{path}:{name}->{out_name}"] = {
+                    "plain_nonfinite_dependent": int(want.sum()),
+                    "kernel_nonfinite": int(got.sum()), "missed": missed}
+                check(missed == 0, f"a NaN in {name}: the {path} decode "
+                      f"kernel's {out_name} is finite at {missed} entries "
+                      f"where the plain version's is not")
     return out
 
 
@@ -2888,11 +2966,12 @@ RWKV_H, RWKV_D, RWKV_CHUNK = 64, 64, 64  # rwkv6-7b: 64 heads of 64
 # sequences of 1024, SLW linear from 8 over 12 steps, batch warmup from 4,
 # 20 steps, one eval of 8 sequences
 RWKV_LAYERS, RWKV_B, RWKV_STEPS, RWKV_EVAL = 4, 8, 20, 8
-# serving: rwkv6-7b at full width cut to 16 of its 32 layers.  The serving
+# serving: rwkv6-7b at full width cut to 8 of its 32 layers.  The serving
 # phases are host-bound (one step issues every layer's kernels) and took
 # 112-149 s at full depth, the most of any phase and the most varying
 # between machines; the depth cut keeps the script inside its time limit
-RWKV_SERVE_LAYERS = 16
+# (16 layers before the MoE phases came, 8 since)
+RWKV_SERVE_LAYERS = 8
 # the kernels against their plain versions, fp32: each output within this
 # fraction of the plain output's largest entry (fixed before the first run:
 # fp32 sums over up to 64 keys and 64 channels in another order)
@@ -2907,7 +2986,7 @@ FAST_DECAY = -54.6
 # the reference backend on the card: every leaf of two batches within
 # GRAD_RTOL of the leaf's largest entry at the norms' eps raised to
 # RWKV_GRAD_EPS, where the fp32 gradient is well-conditioned; at the
-# model's own eps and at those of RWKV_GRAD_SWEEP only reported.  At the
+# model's own eps only reported.  At the
 # model's eps no fixed limit both passes the kernels and catches a wrong
 # backward: on the H100 (PERF.md, §6) the reference itself moved 4.1e-3
 # and 4.8e-2 between card and host there, and the kernel path's distance
@@ -2915,7 +2994,6 @@ FAST_DECAY = -54.6
 # 1e-2; at eps 1 the kernel path read at most 1.1e-5 and the reference's
 # card-vs-host spread 6.6e-6
 RWKV_GRAD_EPS = 1.0
-RWKV_GRAD_SWEEP = (1e-3, 1e-1, 10.0)
 # a planted fault the check at RWKV_GRAD_EPS must catch: dv x (1 + this)
 # out of the backward kernel
 RWKV_FAULT = 1e-2
@@ -3513,9 +3591,8 @@ def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
     profiler.  Against rwkv_backend="reference": every gradient leaf of the
     first step's batch at the initial weights and of the last step's
     (8 x 1024) at the trained weights, at the norms' eps raised to
-    RWKV_GRAD_EPS, and reported only at the model's own and at those of
-    RWKV_GRAD_SWEEP (see :func:`_compare_rwkv_grads`),
-    then the first 8 steps' losses from the same initial weights.  The reference runs
+    RWKV_GRAD_EPS, and reported only at the model's own (see
+    :func:`_compare_rwkv_grads`), then the first 8 steps' losses from the same initial weights.  The reference runs
     with remat "full" (recomputing each block changes no arithmetic): its
     pairwise (B, H, Q, Q, D) decay tensors, kept for autograd, would need
     some 17 GB a layer at 8 x 1024."""
@@ -3595,7 +3672,7 @@ def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
         batch, _ = trainer.stack.apply(trainer.pipeline.batch_at(i), plans[i])
         batch = trainer.to_device(batch)
         rows = {"weights": "trained" if is_trained else "initial"}
-        for eps in (RWKV_GRAD_EPS, tc.model.norm_eps, *RWKV_GRAD_SWEEP):
+        for eps in (RWKV_GRAD_EPS, tc.model.norm_eps):
             strict = eps == RWKV_GRAD_EPS
             rows[f"eps_{eps:g}"] = _compare_rwkv_grads(
                 trainer.model, weights, batch, is_trained, eps,
@@ -3623,10 +3700,10 @@ SSD_H, SSD_P, SSD_N, SSD_CHUNK = 80, 64, 64, 128  # zamba2-2.7b's SSD
 # 8 of sequences of 1024, SLW linear from 8 over 12 steps, batch warmup
 # from 4, 20 steps, one eval of 8 sequences
 ZAMBA_B, ZAMBA_STEPS, ZAMBA_EVAL = 8, 20, 8
-# serving: zamba2-2.7b at full width cut to 18 of its 54 Mamba-2 layers (3
+# serving: zamba2-2.7b at full width cut to 12 of its 54 Mamba-2 layers (2
 # of its 9 shared-block groups), for the same reason as RWKV_SERVE_LAYERS
-# (140-189 s at full depth)
-ZAMBA_SERVE_LAYERS = 18
+# (140-189 s at full depth; 18 layers before the MoE phases, 12 since)
+ZAMBA_SERVE_LAYERS = 12
 # the SSD kernels against their plain versions, fp32: each output within
 # this fraction of the plain output's largest entry (fixed before the first
 # run: fp32 sums over up to 128 rows and 64 channels in another order)
@@ -4203,6 +4280,561 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
     return {"ssd_fwd": launches["ssd_fwd"], "ssd_bwd": launches["ssd_bwd"]}
 
 
+# ---------------------------------------------------------------------------
+# deepseek-moe-16b: the flash kernels at head dim 128 and the other presets'
+# (D, G), then the MoE family served at full width and depth and trained at
+# full width, 4 of its 28 layers deep
+# ---------------------------------------------------------------------------
+
+MOE_H, MOE_D = 16, 128  # deepseek-moe-16b: 16 heads of 128, kv 16
+MOE_TRAIN_LAYERS, MOE_B, MOE_STEPS, MOE_EVAL = 4, 8, 20, 8
+# the other presets' attention shapes (head dim, group size, kv heads):
+# llava-next-mistral-7b, qwen2-1.5b, smollm-360m and qwen3-32b
+PRESET_DG = {"llava-next-mistral-7b": (128, 4, 8), "qwen2-1.5b": (128, 6, 2),
+             "smollm-360m": (64, 3, 5), "qwen3-32b": (80, 8, 8)}
+# fixed before the first run: the ops-level GQA Function (the kernels on
+# expanded heads, dK/dV summed over each group in fp32) against autograd
+# through the blockwise backend, as GRAD_RTOL holds them in the models
+GQA_RTOL = 1e-4
+# a dv x (1 + MOE_FAULT) planted in the flash backward that the MoE
+# gradient check must catch
+MOE_FAULT = 1e-2
+
+
+def moe_config(n_layers: int = 0):
+    """deepseek-moe-16b on the flash and decode kernels (the preset stays
+    on blockwise and the plain decode, as the reference's does)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("deepseek-moe-16b").replace(attn_backend="flash",
+                                               decode_backend="kernel")
+    return cfg.replace(n_layers=n_layers) if n_layers else cfg
+
+
+def moe_train_config(attn_backend: str = "flash"):
+    from repro_torch.configs import (BatchWarmupConfig, OptimizerConfig,
+                                     SLWConfig, TrainConfig)
+    tokens = MOE_STEPS * MOE_B * S_TRAIN
+    return TrainConfig(
+        model=moe_config(MOE_TRAIN_LAYERS).replace(attn_backend=attn_backend),
+        optimizer=OptimizerConfig(
+            lr=6e-4, schedule="token_cosine", warmup_steps=6,
+            warmup_tokens=6 * MOE_B * S_TRAIN, total_steps=MOE_STEPS,
+            total_tokens=tokens),
+        slw=SLWConfig(enabled=True, pacing="linear", start_seq_len=8,
+                      duration_steps=12, round_multiple=8, max_buckets=12),
+        batch_warmup=BatchWarmupConfig(enabled=True, start_batch=4,
+                                       warmup_tokens=tokens // 20),
+        seq_len=S_TRAIN, global_batch=MOE_B, seed=SEED, remat="full",
+        eval_interval=MOE_STEPS)
+
+
+class PinnedRouting:
+    """Top-k routing is discontinuous: flash and plain attention differ by
+    ~1e-6, enough to flip an assignment near a tie between the k-th and
+    the next expert, and one flip moves the capacity ranking of every
+    later assignment of that expert in the row.  ``record()`` keeps each
+    routing call's experts (in call order) from one run; ``replay()``
+    gives another run those experts, with gates from its own
+    probabilities at them, and counts the assignments its own top-k would
+    have chosen otherwise.  ``record()`` also keeps the dropped fraction
+    of every multi-token call (the prefills)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe = moe
+        self.top_k, self.ffn = moe.top_k_experts, moe.apply_moe_ffn
+        self.idx, self.dropped, self.mode = [], [], None
+        self.calls, self.flips, self.assignments = 0, None, 0
+
+    def _top_k(self, probs, k):
+        if self.mode == "record":
+            gate, idx = self.top_k(probs, k)
+            self.idx.append(idx)
+            return gate, idx
+        check(self.calls < len(self.idx), "the replaying run routed more "
+              "often than the recorded one")
+        idx = self.idx[self.calls]
+        self.calls += 1
+        check(idx.shape == probs.shape[:-1] + (k,), f"routing call "
+              f"{self.calls}: shape {tuple(idx.shape)} != {probs.shape}")
+        own = self.top_k(probs, k)[1]
+        kept = (own[..., :, None] == idx[..., None, :]).any(-1).sum()
+        self.flips = own.numel() - kept if self.flips is None \
+            else self.flips + own.numel() - kept
+        self.assignments += own.numel()
+        return probs.gather(-1, idx), idx
+
+    def _ffn(self, params, x, cfg, with_aux=True):
+        if self.mode != "record" or x.shape[1] == 1:
+            return self.ffn(params, x, cfg, with_aux)
+        y, aux = self.ffn(params, x, cfg)
+        self.dropped.append(aux["dropped_frac"].detach())
+        return y, aux if with_aux else None
+
+    @contextlib.contextmanager
+    def _patched(self, mode: str):
+        from unittest import mock
+        self.mode = mode
+        try:
+            with mock.patch.object(self.moe, "top_k_experts", self._top_k), \
+                    mock.patch.object(self.moe, "apply_moe_ffn", self._ffn):
+                yield self
+        finally:
+            self.mode = None
+
+    def record(self):
+        self.idx, self.dropped = [], []
+        return self._patched("record")
+
+    def replay(self):
+        self.calls, self.flips, self.assignments = 0, None, 0
+        return self._patched("replay")
+
+    def replayed(self) -> dict:
+        """The last replay: every recorded call used, and its flips."""
+        check(self.calls == len(self.idx), f"the replaying run routed "
+              f"{self.calls} times, the recorded one {len(self.idx)}")
+        return {"routing_calls": self.calls,
+                "assignments": self.assignments,
+                "own_top_k_differs": int(self.flips or 0)}
+
+
+def _gqa_check(d: int, g: int, kv: int, seed: int) -> dict:
+    """The flash ``torch.autograd.Function`` on (B, S, KV x G, D) against
+    autograd through the blockwise backend: o and dq, dk, dv within
+    GQA_RTOL of the plain side's largest entry."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.attention import blockwise_attention
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, s = 2, 300
+    q = torch.randn(b, s, kv * g, d, device="cuda", generator=gen)
+    k, v = (torch.randn(b, s, kv, d, device="cuda", generator=gen)
+            for _ in range(2))
+    do = torch.randn(b, s, kv * g, d, device="cuda", generator=gen)
+    outs = []
+    for fn in (flash_attention, blockwise_attention):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*xs, causal=True)
+        outs.append([o.detach(), *torch.autograd.grad(o, xs, do)])
+    errs = {}
+    for name, a, r in zip(("o", "dq", "dk", "dv"), *outs):
+        errs[name] = ((a - r).abs().max() / r.abs().max()).item()
+        check(errs[name] <= GQA_RTOL, f"GQA d {d} g {g} {name}: "
+                                      f"{errs[name]}")
+    return errs
+
+
+def phase_flash_d128(prefills, train_shapes, cache_len: int,
+                     main_lengths) -> tuple:
+    """The flash kernels at deepseek-moe-16b's head dim 128 (16 heads):
+    forward at every serving prefill and every training and eval shape,
+    the three backward kernels at every training shape, each against its
+    plain version; the GQA Function (forward and backward) at each other
+    preset's (D, G), qwen3-32b's head dim 80 included; the
+    decode kernels, dense and paged, at (128, 1), (128, 4), (128, 6), (64,
+    3) and (80, 8) in fp32 and bf16, and at the MoE engine's fused and
+    replay shapes.  Times the forward at 1 x 512 and 8 x 1024, the three
+    backward kernels at 8 x 1024 and decode on the MoE engine's fused
+    step, each beside its plain version, SDPA and its bound."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain, flash_attention_bwd_plain,
+        flash_attention_bwd_preprocess,
+        flash_attention_bwd_preprocess_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    h, d = MOE_H, MOE_D
+    errs = {}
+    for i, (b, s) in enumerate(sorted(prefills | train_shapes)):
+        key = f"{b}x{s}"
+        q, k, v = _attn_inputs(b, s, torch.float32, 3000 + i, h, d)
+        errs[key] = check_attention(q, k, v, f"d128 {key}")
+        if (b, s) in train_shapes:
+            do = _attn_inputs(b, s, torch.float32, 4000 + i, h, d)[0]
+            o, lse = flash_attention_fwd(q, k, v)
+            errs[key] += check_attention_bwd(q, k, v, o, lse, do,
+                                             f"d128 {key}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    gqa = {name: _gqa_check(dd, g, kv, 50 + i)
+           for i, (name, (dd, g, kv)) in enumerate(PRESET_DG.items())}
+    lengths = [0, 1, 127, 128, 1000, 1024, 600, 5]
+    paged = [0, 1, 127, 128, 700, 1024, 600, 5]
+    n_pages = sum(-(-ln // PAGE_SIZE) for ln in paged) + 4
+    decode = {}
+    dg = [("deepseek-moe-16b", (MOE_D, 1, MOE_H))] + list(PRESET_DG.items())
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, (dd, g, kv)) in enumerate(dg):
+            key = f"{str(dtype)[6:]}_{name}_d{dd}_g{g}"
+            decode[key] = check_decode(*_decode_inputs(
+                8, 1024, g, dtype, lengths, 60 + i, kv, dd), key)
+            decode[key + "_paged"] = check_paged(*_paged_inputs(
+                paged, PAGE_SIZE, 1024 // PAGE_SIZE, n_pages, g, dtype,
+                70 + i, holes=((6, 3),), h=kv, d=dd), key)
+    for b, ln in ((8, main_lengths), (1, [cache_len - 149])):
+        key = f"float32_moe_{b}x{cache_len}"
+        decode[key] = check_decode(*_decode_inputs(
+            b, cache_len, 1, torch.float32, ln, 80 + b, h, d), key)
+
+    timing = {}
+    for b, s in ((1, 512), (MOE_B, S_TRAIN)):
+        q, k, v = _attn_inputs(b, s, torch.float32, 5, h, d)
+        q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
+        bh = b * h
+        nbytes = 4 * bh * s * d * 4 + bh * s * 4
+        flops = 4 * d * _causal_pairs(bh, s)
+        t_bound, by = tc_bound(nbytes, flops)
+        timing[f"fwd_{b}x{s}"] = {
+            "max_abs_err": check_attention(q, k, v, f"d128 timed {b}x{s}")[0],
+            **times(lambda: flash_attention_fwd(q, k, v),
+                    lambda: flash_attention_fwd_plain(q, k, v),
+                    lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=True)),
+            "bound_ms": t_bound, "bound_by": by,
+            "cuda_core_bound_ms": bound(nbytes, flops, torch.float32)[0]}
+    do = _attn_inputs(MOE_B, S_TRAIN, torch.float32, 6, h, d)[0]
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = flash_attention_bwd_preprocess(o, do)
+    err = dict(zip(("dq", "dk", "dv"), check_attention_bwd(
+        q, k, v, o, lse, do, "d128 timed")))
+    q4, k4, v4 = (t.reshape(MOE_B, h, S_TRAIN, d).clone().requires_grad_()
+                  for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(MOE_B, h, S_TRAIN, d)
+    sdpa_bwd = lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                           retain_graph=True)
+    rest = (do, lse, delta)
+    sdpa = {"library_ms": device_ms(sdpa_bwd), "library_covers":
+            "SDPA's whole backward (all three kernels)"}
+    bh = MOE_B * h
+    bounds = _bwd_bounds(bh, S_TRAIN, d=d)
+    cc = _bwd_bounds(bh, S_TRAIN, False, d=d)
+    for name, kern, plain, e in (
+            ("bwd_preprocess_8x1024",
+             lambda: flash_attention_bwd_preprocess(o, do),
+             lambda: flash_attention_bwd_preprocess_plain(o, do),
+             (delta - flash_attention_bwd_preprocess_plain(o, do)).abs()
+             .max().item()),
+            ("bwd_dq_8x1024",
+             lambda: flash_attention_bwd_dq(q, k, v, *rest),
+             lambda: flash_attention_bwd_dq_plain(q, k, v, *rest),
+             err["dq"]),
+            ("bwd_dkv_8x1024",
+             lambda: flash_attention_bwd_dkv(q, k, v, *rest),
+             lambda: flash_attention_bwd_dkv_plain(q, k, v, *rest),
+             max(err["dk"], err["dv"])),
+            ("bwd_all_8x1024",
+             lambda: flash_attention_bwd(q, k, v, o, lse, do),
+             lambda: flash_attention_bwd_plain(q, k, v, o, lse, do),
+             max(err.values()))):
+        part = name.split("_")[1]
+        t_bound, by = bounds["preprocess" if part == "preprocess" else part]
+        timing[name] = {"max_abs_err": e, **times(kern, plain),
+                        "bound_ms": t_bound, "bound_by": by}
+        if part == "preprocess":
+            timing[name]["library_ms"] = device_ms(
+                lambda: torch.linalg.vecdot(o, do))
+        else:
+            timing[name].update(sdpa)
+            timing[name]["cuda_core_bound_ms"] = cc[part][0]
+    del q, k, v, q4, k4, v4, out4, do, do4, o, lse, delta
+    timing["decode_moe_main"] = time_decode(*_decode_inputs(
+        8, cache_len, 1, torch.float32, main_lengths, 9, h, d),
+        "float32_moe_main")
+    torch.cuda.empty_cache()
+    emit("flash_d128", shape=f"H={h} D={d} fp32", max_err=errs,
+         gqa_max_rel_err=gqa, decode_max_err=decode, timing=timing)
+    return timing, ({(b, s, d) for b, s in prefills | train_shapes},
+                    {(8, cache_len, d), (1, cache_len, d)})
+
+
+def _moe_weights(n_layers: int = 0):
+    """(config, fp32 params drawn on the card from a CUDA generator seeded
+    with SEED, seconds)."""
+    from repro_torch.models import model_zoo
+    cfg = moe_config(n_layers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model_zoo.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED),
+        torch.device("cuda"))
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def phase_engine_moe(dev: dict, fa_checked: set, fd_checked: set) -> dict:
+    """Serves deepseek-moe-16b at full width and all 28 layers (fp32, 67.5
+    GB of weights drawn on the card) in 8 slots of 576: the 16 requests of
+    ``make_requests``, fcfs, with routing recorded.  Checks the launch
+    counts (flash_attention_fwd layers x prefill calls; flash_decode_fwd
+    layers x (fused + replay steps); no other kernel), that every request
+    ran its budget, and the greedy streams against a twin engine on the
+    same weight tensors with the plain backends, its routing pinned to the
+    kernel engine's (:class:`PinnedRouting`); reports the prefills'
+    dropped fraction and the device idle share over a steady decode
+    window; fails if the phase leaves 64 MiB allocated."""
+    from repro_torch.launch.serve import make_requests, scheduler_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import Replica, prefill_split
+    held = torch.cuda.memory_allocated()
+    cfg, params, init_s = _moe_weights()
+    model = model_zoo.build_model(cfg)
+    plain_model = model_zoo.build_model(cfg.replace(
+        attn_backend="blockwise", decode_backend="reference"))
+    reqs = make_requests(cfg, 16, PROMPT_LEN, GEN, seed=SEED)
+    cfg_s = lambda **kw: scheduler_config(8, PROMPT_LEN, PROMPT_LEN + GEN,
+                                          **kw)
+    ladder = cfg_s().ladder()
+    at_bucket = [dataclasses.replace(r, tokens=r.tokens[:prefill_split(
+        len(r.tokens), ladder)]) for r in reqs[:8]]
+    _serve_model(model, params, [dataclasses.replace(at_bucket[3],
+                                                     max_tokens=4)])
+    pins = PinnedRouting()
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with pins.record():
+        out = _serve_model(model, params, reqs)
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats, cache_len = out["stats"], out["engine"].cfg.cache_len
+    del out["engine"]
+    replay = _replay_steps(reqs, ladder)
+    want = {n: 0 for n in counters}
+    want["flash_attention_fwd"] = cfg.n_layers * len(reqs)
+    want["flash_decode_fwd"] = cfg.n_layers * (stats.decode_steps + replay)
+    check(launches == want, f"moe serve launches {launches} != {want}")
+    check(all(r.n_generated == q.max_tokens and r.finish_reason == "length"
+              for r, q in zip(out["results"], reqs)),
+          "every moe request generated its budget")
+    prefills = {(1, prefill_split(len(r.tokens), ladder), MOE_D)
+                for r in reqs}
+    check(prefills <= fa_checked, f"moe prefill shapes "
+                                  f"{prefills - fa_checked} not checked")
+    check({(8, cache_len, MOE_D), (1, cache_len, MOE_D)} <= fd_checked,
+          "moe decode shapes not checked")
+    dropped = torch.stack(pins.dropped)
+    check(len(pins.dropped) == cfg.n_layers * len(reqs),
+          f"{len(pins.dropped)} multi-token routing calls")
+    counters = _zero_counters()
+    with pins.replay():
+        plain = _serve_model(plain_model, params, reqs)
+    check(all(f.launches == 0 for f in counters.values()),
+          "the plain backends launched a kernel")
+    pinned = pins.replayed()
+    diverged, gaps = check_streams(reqs, out["results"], plain["results"],
+                                   plain["engine"], "moe")
+    plain_rates = {"decode_tok_s": plain["decode_tok_s"],
+                   "prefill_tok_s": plain["prefill_tok_s"]}
+    del plain, pins
+    torch.cuda.empty_cache()
+
+    # device idle share over a steady decode window: the first 8 requests
+    # at their buckets admitted, 6 fused steps untraced, 6 traced
+    window = Replica(model, params, cfg_s(), device="cuda")
+    for r in at_bucket:
+        window.scheduler.submit(r)
+    while window.admit():
+        pass
+    check(len(window.scheduler.active) == 8, "the decode window's slots")
+    steps6 = lambda: [window.step() for _ in range(6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps6()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps6)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:6]}
+    del window
+    emit("engine_moe", card=dev["nvidia_smi"], arch=cfg.name,
+         n_layers=cfg.n_layers, params=model_zoo.param_count(cfg),
+         active_params=model_zoo.active_param_count(cfg),
+         weight_init_s=init_s, prefill_tok_s=out["prefill_tok_s"],
+         decode_tok_s=out["decode_tok_s"], p50_ms=out["p50_s"] * 1e3,
+         p95_ms=out["p95_s"] * 1e3, prefill_calls=len(reqs),
+         fused_steps=stats.decode_steps, replay_steps=replay,
+         launches=launches, max_memory_allocated=peak,
+         wall_ms=out["wall_s"] * 1e3,
+         prefill_dropped_frac={"mean": dropped.mean().item(),
+                               "max": dropped.max().item(),
+                               "calls": len(dropped)},
+         plain_twin={**plain_rates, "pinned_routing": pinned,
+                     "diverged": diverged, "near_tie_gaps": gaps},
+         traced_decode_window={"fused_steps": 6, "live_slots": 8,
+                               "wall_ms_untraced": wall,
+                               "device_busy_ms": busy,
+                               "device_idle_share": 1 - busy / wall,
+                               "top_kernels_ms": top})
+    del model, plain_model, params, out, dropped
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    check(left < 2**26, f"phase engine_moe left {left} bytes allocated")
+    return {"serve_moe": {k: launches[k] for k in
+                          ("flash_attention_fwd", "flash_decode_fwd")}}
+
+
+def _planted_flash_fault():
+    """Patches the flash Function's backward so dV comes out of the
+    kernels x (1 + MOE_FAULT): a wrong backward the gradient check must
+    catch."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops
+    real = ops.flash_attention_bwd
+
+    def faulty(*args, **kw):
+        dq, dk, dv = real(*args, **kw)
+        return dq, dk, dv * (1 + MOE_FAULT)
+    return mock.patch.object(ops, "flash_attention_bwd", faulty)
+
+
+def _compare_moe_grads(flash_model, plain_model, params, batch) -> dict:
+    """Every gradient leaf of one batch through the flash kernels against
+    the blockwise backend's, the plain run's routing pinned to the flash
+    run's: each leaf within GRAD_RTOL of the plain leaf's largest entry,
+    the attention projections, the router and the experts with a nonzero
+    one; then the same with a planted dv x (1 + MOE_FAULT), which must
+    break the limit."""
+    pins = PinnedRouting()
+    with pins.record():
+        got = _grads(flash_model, params, batch)
+    with pins.replay():
+        ref = _grads(plain_model, params, batch)
+    pinned = pins.replayed()
+    names = _leaf_names(params)
+    scales = [r.abs().max().item() for r in ref]
+    rel = dict(zip(names, _leaf_errs(got, ref, scales)))
+    del got
+    for name, sc in zip(names, scales):
+        if any(k in name for k in (".attn.", ".router", ".w_")):
+            check(sc > 0, f"no gradient reaches {name}")
+        check(rel[name] <= GRAD_RTOL, f"moe gradient {name}: {rel[name]}")
+    with pins.replay(), _planted_flash_fault():
+        bad = dict(zip(names, _leaf_errs(_grads(flash_model, params, batch),
+                                         ref, scales)))
+    over = sorted(k for k, v in bad.items() if v > GRAD_RTOL)
+    check(bool(over), "the moe gradient check missed a planted dv fault")
+    worst = max(rel, key=rel.get)
+    del ref
+    torch.cuda.empty_cache()
+    return {"max_rel_err": rel[worst], "worst_leaf": worst,
+            "attn_max_rel_err": max(v for k, v in rel.items()
+                                    if ".attn." in k),
+            "router_max_rel_err": max(v for k, v in rel.items()
+                                      if k.endswith(".router")),
+            "pinned_routing": pinned,
+            "planted_fault": {"dv_scale": 1 + MOE_FAULT,
+                              "max_rel_err": max(bad.values()),
+                              "leaves_over_limit": len(over)}}
+
+
+def phase_train_moe(dev: dict, fa_checked: set) -> dict:
+    """Trains deepseek-moe-16b at full width, MOE_TRAIN_LAYERS of its 28
+    layers deep, through the Trainer (remat "full", weights from a CUDA
+    generator seeded with SEED): 20 SLW steps and one full-length eval,
+    then 2 full-length steps untraced and 2 under the profiler.  Checks the
+    plans against ``predict_trajectory``, finite losses and the launch
+    counts; then every gradient leaf of the first step's batch at the
+    initial weights and of the last step's (8 x 1024) at the trained
+    weights against the blockwise backend, routing pinned
+    (:func:`_compare_moe_grads`).  The initial weights wait on the host
+    meanwhile."""
+    from repro_torch.core.regulators import predict_trajectory
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import transforms as optim_tx
+    tc = moe_train_config()
+    router = []
+    trainer = Trainer(tc, eval_batch=MOE_EVAL, device="cuda",
+                      callback=lambda step, m: router.append(
+                          [m["load_balance"], m["router_z"],
+                           m["dropped_frac"]]))
+    to_host = lambda tree: optim_tx.tree_map(
+        lambda t: t.detach().to("cpu", copy=True), tree)
+    to_card = lambda tree: optim_tx.tree_map(lambda t: t.to("cuda"), tree)
+    init = to_host(trainer.state["params"])
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.run()
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = tc.model.n_layers
+
+    check(res.steps == MOE_STEPS and not res.diverged, "moe trained 20 steps")
+    check(all(math.isfinite(x) for x in res.loss_history), "moe finite losses")
+    plans = predict_trajectory(tc, MOE_STEPS)
+    ran = list(zip(res.seqlen_history, res.batch_history, res.lr_history))
+    check(ran == [(p.seq_len, p.batch_size, p.lr) for p in plans],
+          "the moe run's plans are predict_trajectory's")
+    n_evals = len(res.val_ppl_history)
+    check(n_evals == 1, f"{n_evals} moe evals")
+    # remat "full": the backward recomputes each layer's forward
+    want = {n: 0 for n in counters}
+    for name in _fa_kernels():
+        want[name] = n_layers * MOE_STEPS
+    want["flash_attention_fwd"] = n_layers * (2 * MOE_STEPS + n_evals)
+    check(launches == want, f"moe train launches {launches} != {want}")
+    shapes = {(p.batch_size, p.seq_len, MOE_D) for p in plans} | {
+        (MOE_EVAL, S_TRAIN, MOE_D)}
+    check(shapes <= fa_checked, f"moe shapes {shapes - fa_checked}")
+
+    full = [i for i, s in enumerate(res.seqlen_history) if s == S_TRAIN]
+    durations = trainer.watchdog.durations
+    full_s = [durations[i] for i in full]
+    full_tokens = sum(res.batch_history[i] * S_TRAIN for i in full)
+
+    def steps2():
+        for _ in range(2):
+            trainer.run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps2()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps2)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:8]}
+    emit("train_moe", card=dev["nvidia_smi"], arch=tc.model.name,
+         n_layers=n_layers, params=model_zoo.param_count(tc.model),
+         steps=res.steps, tokens=res.tokens, full_length_steps=len(full),
+         tokens_per_s_full_length=full_tokens / sum(full_s),
+         p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
+         first_loss=res.loss_history[0], last_loss=res.loss_history[-1],
+         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         launches=launches, max_memory_allocated=peak,
+         wall_s=res.wall_time_s,
+         router_per_step={"keys": ["load_balance", "router_z",
+                                   "dropped_frac"],
+                          "seq_len": res.seqlen_history,
+                          "values": router[:MOE_STEPS]},
+         traced_2_full_steps={"wall_ms_untraced": wall,
+                              "device_busy_ms": busy,
+                              "device_idle_share": 1 - busy / wall,
+                              "top_kernels_ms": top})
+
+    trained = to_host(trainer.state["params"])
+    trainer.state = None  # frees the params and the Adam moments
+    torch.cuda.empty_cache()
+    plain_model = model_zoo.build_model(
+        tc.model.replace(attn_backend="blockwise"), remat=tc.remat)
+    grads = {}
+    for weights, i, is_trained in ((init, 0, False),
+                                   (trained, MOE_STEPS - 1, True)):
+        batch, _ = trainer.stack.apply(trainer.pipeline.batch_at(i), plans[i])
+        batch = trainer.to_device(batch)
+        params = to_card(weights)
+        grads[f"{len(batch['tokens'])}x{plans[i].seq_len}"] = {
+            "weights": "trained" if is_trained else "initial",
+            **_compare_moe_grads(trainer.model, plain_model, params, batch)}
+        del params
+        torch.cuda.empty_cache()
+    emit("train_moe_grads", leaves=len(_leaf_names(init)),
+         norm_eps=tc.model.norm_eps, rtol=GRAD_RTOL, batches=grads)
+    del trained, trainer, init, weights
+    torch.cuda.empty_cache()
+    return {name: launches[name] for name in _fa_kernels()}
+
+
 
 def main() -> int:
     dev = phase_device()
@@ -4223,6 +4855,8 @@ def main() -> int:
     phase_parity(engine)
     pd_timing, pd_checked = phase_flash_decode_paged(main_lengths,
                                                      PROMPT_LEN + GEN)
+    emit("decode_nan", **check_decode_nan_propagation(main_lengths,
+                                                      PROMPT_LEN + GEN))
     paged_launches = phase_engine_paged(dev, engine, fa_checked, fd_checked,
                                         pd_checked)
     router_launches = phase_router(engine)
@@ -4290,6 +4924,19 @@ def main() -> int:
                                      pd_checked)
     torch.cuda.empty_cache()
     zamba_train = phase_train_zamba(dev, ssd_fwd_checked, ssd_bwd_checked)
+    torch.cuda.empty_cache()
+
+    moe_prefills = {(1, prefill_split(len(r.tokens), ladder))
+                    for r in make_requests(get_arch("deepseek-moe-16b"), 16,
+                                           PROMPT_LEN, GEN, seed=SEED)}
+    moe_train_shapes = {(p.batch_size, p.seq_len) for p in
+                        predict_trajectory(moe_train_config(), MOE_STEPS)}
+    _, (d128_fa, d128_fd) = phase_flash_d128(
+        moe_prefills, moe_train_shapes | {(MOE_EVAL, S_TRAIN)},
+        PROMPT_LEN + GEN, main_lengths)
+    moe_serve = phase_engine_moe(dev, d128_fa, d128_fd)
+    torch.cuda.empty_cache()
+    moe_train = phase_train_moe(dev, d128_fa)
 
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
@@ -4299,7 +4946,8 @@ def main() -> int:
                "telemetry_gns": tg_launches, "recovery": recovery_launches,
                "grads_bf16": bf16_launches,
                **rwkv_serve, "train_rwkv": rwkv_train, **zamba_serve,
-               "train_zamba": zamba_train}
+               "train_zamba": zamba_train, **moe_serve,
+               "train_moe": moe_train}
     rows = [("flash_attention_fwd", "flash_attention_fwd.cu",
              "flash_attention/kernel.py:168", fa_timing["float32_1x512"]),
             ("flash_attention_bwd_preprocess", "flash_attention_bwd.cu",

@@ -1,26 +1,38 @@
 """Architecture registry of the port (``repro/configs/__init__.py``).
 
-Only the presets the port runs so far are registered: the dense GPT-2
-117M and GPT-3 125M replicas, rwkv6-7b and the hybrid zamba2-2.7b.
-``reduced`` is ``configs/__init__.py:68-90`` for the dense, rwkv and
-hybrid families.
+Every preset of the reference: the ten assigned architectures and the
+paper's GPT-2 117M and GPT-3 125M replicas (the reference's gpt2-1.5b is
+an unregistered variant there too).  ``reduced`` is
+``configs/__init__.py:68-91``.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import gpt2, rwkv6_7b, zamba2_2p7b
+from repro_torch.configs import (deepseek_moe_16b, gpt2,
+                                 llava_next_mistral_7b, moonshot_v1_16b_a3b,
+                                 musicgen_large, phi3_mini_3p8b, qwen2_1p5b,
+                                 qwen3_32b, rwkv6_7b, smollm_360m,
+                                 zamba2_2p7b)
 from repro_torch.configs.base import (BatchWarmupConfig, GNSConfig,
                                      ModelConfig, OptimizerConfig,
                                      RegulatorSpec, SLWConfig, TrainConfig)
 
 ARCHS: Dict[str, ModelConfig] = {
+    "zamba2-2.7b": zamba2_2p7b.ZAMBA2_2P7B,
+    "smollm-360m": smollm_360m.SMOLLM_360M,
+    "phi3-mini-3.8b": phi3_mini_3p8b.PHI3_MINI_3P8B,
+    "qwen3-32b": qwen3_32b.QWEN3_32B,
+    "qwen2-1.5b": qwen2_1p5b.QWEN2_1P5B,
+    "rwkv6-7b": rwkv6_7b.RWKV6_7B,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.MOONSHOT_V1_16B_A3B,
+    "deepseek-moe-16b": deepseek_moe_16b.DEEPSEEK_MOE_16B,
+    "musicgen-large": musicgen_large.MUSICGEN_LARGE,
+    "llava-next-mistral-7b": llava_next_mistral_7b.LLAVA_NEXT_MISTRAL_7B,
     "gpt2-117m": gpt2.GPT2_117M,
     "gpt3-125m": gpt2.GPT3_125M,
-    "rwkv6-7b": rwkv6_7b.RWKV6_7B,
-    "zamba2-2.7b": zamba2_2p7b.ZAMBA2_2P7B,
 }
-FAMILIES = ("dense", "rwkv", "hybrid")
+FAMILIES = ("dense", "moe", "rwkv", "hybrid")
 
 
 def get_arch(name: str) -> ModelConfig:
@@ -31,16 +43,22 @@ def get_arch(name: str) -> ModelConfig:
 
 
 def reduced(model: ModelConfig) -> ModelConfig:
-    """Small same-family config for CPU tests (2 layers, d 64, vocab 512;
-    rwkv: 4 heads of 16, LoRA rank 8, chunk 16; hybrid: 4 layers with the
-    shared block after every 2, SSD state 16, heads of 16, chunk 32)."""
+    """Small same-family config for CPU tests (2 layers, d 64, vocab 512,
+    a patch prefix of 8 for vision; moe: 4 experts, at most 1 shared,
+    top-2; rwkv: 4 heads of 16, LoRA rank 8, chunk 16; hybrid: 4 layers
+    with the shared block after every 2, SSD state 16, heads of 16, chunk
+    32)."""
     if model.family not in FAMILIES:
         raise ValueError(f"the port has only the {', '.join(FAMILIES)} "
                          f"families, not {model.family!r}")
     kw = dict(
         name=model.name + "-reduced", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=max(1, 4 * model.n_kv_heads // max(model.n_heads, 1)),
-        head_dim=16, d_ff=96, vocab_size=512, max_seq_len=256)
+        head_dim=16, d_ff=96, vocab_size=512, max_seq_len=256,
+        prefix_tokens=8 if model.frontend == "vision_patches" else 0)
+    if model.family == "moe":
+        kw.update(n_experts=4, n_shared_experts=min(model.n_shared_experts, 1),
+                  top_k=2)
     if model.family == "hybrid":
         kw.update(n_layers=4, attn_every=2, ssm_state=16, ssm_head_dim=16,
                   ssm_chunk=32)

@@ -4,9 +4,9 @@ Answers to ``repro/configs/base.py``: ``ModelConfig`` (lines 15-113), and
 ``SLWConfig``, ``BatchWarmupConfig``, ``RegulatorSpec``,
 ``OptimizerConfig`` and ``TrainConfig`` (lines 133-331).  The fields are
 copied, not imported, so this package never imports ``repro``.
-``GNSConfig`` is lines 209-253.  ``ModelConfig`` keeps the fields the
-dense, rwkv and hybrid families read; ``TrainConfig`` leaves out the fields
-only sharding reads, which come with that slice.
+``GNSConfig`` is lines 209-253.  ``ModelConfig`` has every field of the
+reference's; ``TrainConfig`` leaves out the fields only sharding reads,
+which come with that slice.
 """
 from __future__ import annotations
 
@@ -37,6 +37,16 @@ class ModelConfig:
     # (the CUDA split-KV kernel on CUDA tensors, plain on CPU tensors)
     decode_backend: str = "reference"
     rope_theta: float = 10000.0
+    # MoE (``base.py:52-62``): shared + routed experts, top-k token choice
+    # into a capacity buffer; dispatch "global" (one buffer over all
+    # tokens) | "row_local" (ranking and capacity per batch row)
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "row_local"
+    router_aux_coef: float = 0.01
+    router_z_coef: float = 1e-3
     # SSM, Mamba-2 / SSD (``base.py:63-73``); SSD train/prefill backend:
     # "reference" (plain torch) | "kernel" (the CUDA kernels on CUDA
     # tensors, their plain versions on CPU tensors)
@@ -61,7 +71,14 @@ class ModelConfig:
     mlp: str = "swiglu"  # swiglu | gelu
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # modality frontend stubs (``base.py:86-91``): "none" (token LM) |
+    # "audio_frames" (precomputed frame embeddings (B, S, d) replace the
+    # token embedding) | "vision_patches" (precomputed patch embeddings
+    # (B, P, d) prepended to it; ``prefix_tokens`` = P)
+    frontend: str = "none"
+    prefix_tokens: int = 0
     max_seq_len: int = 532480
+    logits_softcap: float = 0.0  # read by no model, as in the reference
 
     @property
     def resolved_head_dim(self) -> int:

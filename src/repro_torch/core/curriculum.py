@@ -1,10 +1,13 @@
-"""SLW curriculum (copy of ``repro/core/curriculum.py:36-140``, text only).
+"""SLW curriculum (copy of ``repro/core/curriculum.py:36-140``).
 
 ``apply_seqlen`` cuts a full-length host batch to the step's length:
 ``truncate`` (paper-faithful) keeps the first ``s_t`` tokens of each
 sequence; ``repack`` reshapes ``(B, S) -> (B * S // s_t, s_t)`` so no token
-is dropped.  ``SLWCurriculum`` holds the pacing state (step, tokens seen,
-the variance gate's level).  numpy only.
+is dropped.  Audio ``frames`` are cut with the tokens; a vision patch
+prefix (``patch_embeds``) is never cut (SLW warms up only the text) and is
+repeated per fold when repacking.  ``SLWCurriculum`` holds the pacing state
+(step, tokens seen, the variance gate's level) and paces the text segment,
+``full_seq - prefix_tokens``.  numpy only.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as np
 from repro_torch.configs.base import SLWConfig
 from repro_torch.core import pacing
 
-SEQ_KEYS = ("tokens", "labels", "loss_mask")
+SEQ_KEYS = ("tokens", "labels", "loss_mask", "frames")
 
 
 @dataclass
@@ -31,7 +34,7 @@ class CurriculumState:
 def apply_seqlen(batch: Dict[str, np.ndarray], s_t: int,
                  mode: str = "truncate") -> Tuple[Dict[str, np.ndarray], int]:
     """Apply sequence length ``s_t`` to a host batch; returns (batch,
-    tokens of the step)."""
+    tokens of the step), the patch prefix's tokens included."""
     seq_keys = [k for k in SEQ_KEYS if k in batch]
     full = batch[seq_keys[0]].shape[1]
     s_t = min(s_t, full)
@@ -44,23 +47,32 @@ def apply_seqlen(batch: Dict[str, np.ndarray], s_t: int,
         for k in seq_keys:
             v = batch[k][:, :folds * s_t]
             out[k] = v.reshape((v.shape[0] * folds, s_t) + v.shape[2:])
+        if "patch_embeds" in out:
+            out["patch_embeds"] = np.repeat(out["patch_embeds"], folds,
+                                            axis=0)
     else:
         raise ValueError(f"unknown SLW mode {mode!r}")
-    return out, int(np.prod(out[seq_keys[0]].shape[:2]))
+    tokens = int(np.prod(out[seq_keys[0]].shape[:2]))
+    if "patch_embeds" in out:
+        tokens += int(out["patch_embeds"].shape[0]
+                      * out["patch_embeds"].shape[1])
+    return out, tokens
 
 
 class SLWCurriculum:
     def __init__(self, cfg: SLWConfig, full_seq: int,
-                 warmup_steps_hint: int = 0):
+                 warmup_steps_hint: int = 0, prefix_tokens: int = 0):
         self.cfg = cfg
         self.full_seq = full_seq
         self.warmup_steps_hint = warmup_steps_hint
-        self.ladder = pacing.bucket_ladder(cfg, full_seq)
+        self.prefix_tokens = prefix_tokens  # a vision patch prefix, frozen
+        self.ladder = pacing.bucket_ladder(cfg, full_seq - prefix_tokens)
         self.state = CurriculumState()
 
     def seqlen_for_step(self) -> int:
         step = self.state.step
-        envelope = pacing.seqlen_at(self.cfg, step, self.full_seq,
+        envelope = pacing.seqlen_at(self.cfg, step,
+                                    self.full_seq - self.prefix_tokens,
                                     self.warmup_steps_hint, self.ladder)
         if self.cfg.enabled and self.cfg.pacing == "variance_gated":
             gated = self.ladder[min(self.state.gate_level,

@@ -112,9 +112,10 @@ class SeqLenRegulator(Regulator):
     name = "seqlen"
 
     def __init__(self, cfg: SLWConfig, full_seq: int,
-                 warmup_steps_hint: int = 0):
+                 warmup_steps_hint: int = 0, prefix_tokens: int = 0):
         self.cfg = cfg
         self.curriculum = SLWCurriculum(cfg, full_seq,
+                                        prefix_tokens=prefix_tokens,
                                         warmup_steps_hint=warmup_steps_hint)
 
     @property
@@ -392,14 +393,17 @@ def auto_specs(tc: TrainConfig) -> Tuple[RegulatorSpec, ...]:
 
 
 def build_stack(tc: TrainConfig, *, dp_size: int = 1,
-                warmup_steps_hint: int = 0) -> RegulatorStack:
+                warmup_steps_hint: int = 0,
+                prefix_tokens: int = 0) -> RegulatorStack:
     """The control plane of a TrainConfig: ``tc.regulators``, or
-    :func:`auto_specs` when it is empty."""
+    :func:`auto_specs` when it is empty.  ``prefix_tokens`` (a vision
+    patch prefix) is left out of the SLW pacing."""
     regs: List[Regulator] = []
     for spec in tc.regulators or auto_specs(tc):
         if spec.kind == "seqlen":
             regs.append(SeqLenRegulator(tc.slw, tc.seq_len,
-                                        warmup_steps_hint=warmup_steps_hint))
+                                        warmup_steps_hint=warmup_steps_hint,
+                                        prefix_tokens=prefix_tokens))
         elif spec.kind == "batch_warmup":
             regs.append(BatchSizeRegulator(tc.batch_warmup, tc.global_batch,
                                            dp_size=dp_size))
@@ -422,13 +426,15 @@ def build_stack(tc: TrainConfig, *, dp_size: int = 1,
 
 
 def predict_trajectory(tc: TrainConfig, n_steps: int, *, dp_size: int = 1,
-                       warmup_steps_hint: int = 0) -> List[StepPlan]:
+                       warmup_steps_hint: int = 0, prefix_tokens: int = 0
+                       ) -> List[StepPlan]:
     """The stack's open-loop trajectory without training: the exact
     (seq_len, batch, lr) sequence the trainer executes, with calm synthetic
     telemetry (unit var_max / grad_norm) for the variance gate.  Token
     accounting mirrors the trainer's."""
     stack = build_stack(tc, dp_size=dp_size,
-                        warmup_steps_hint=warmup_steps_hint)
+                        warmup_steps_hint=warmup_steps_hint,
+                        prefix_tokens=prefix_tokens)
     plans: List[StepPlan] = []
     tokens = 0
     for step in range(n_steps):

@@ -63,8 +63,8 @@
 // dP) and down a column (the products with P and dS), are free of bank
 // conflicts.
 // P is rebuilt with ex2.approx (~2^-22 relative) on scores scaled by
-// log2(e) / sqrt(D) in one FMA.  At D = 128 the dK/dV kernel walks q tiles
-// of 32 in bf16 too, so its four accumulators fit the registers.  The grids
+// log2(e) / sqrt(D) in one FMA.  At D = 80 and 128 the dK/dV kernel walks q
+// tiles of 32 in bf16 too, so its four accumulators fit the registers.  The grids
 // run bh fastest and the heaviest tiles first.
 #include <cmath>
 #include <type_traits>
@@ -209,7 +209,7 @@ __device__ __forceinline__ void mma_frag(float (&c)[D / 8][4],
 // Streamed tiles: fp32 keeps a lo half beside each (see split_tile), so the
 // dQ kernel walks kv tiles of 32 and the dK/dV kernel q tiles of 32, and two
 // stages fit beside the fixed tiles with two blocks on an SM; bf16 walks 64
-// (32 at D = 128, so the dK/dV kernel's four accumulators fit the
+// (32 at D = 80 and 128, so the dK/dV kernel's four accumulators fit the
 // registers).
 template <typename T, int D>
 struct Tiles {
@@ -542,13 +542,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Each entry point: dtype 0 = float32, 1 = bfloat16; d 64 or 128; returns a
+// Each entry point: dtype 0 = float32, 1 = bfloat16; d 64, 80 or 128; returns a
 // cudaError_t (0 = launched).  valid_len <= 0 means S.
 #define DISPATCH(CALL)                                      \
   do {                                                      \
     if (dtype == 0 && d == 64) return (int)CALL(float, 64);   \
+    if (dtype == 0 && d == 80) return (int)CALL(float, 80);   \
     if (dtype == 0 && d == 128) return (int)CALL(float, 128); \
     if (dtype == 1 && d == 64) return (int)CALL(bf16, 64);    \
+    if (dtype == 1 && d == 80) return (int)CALL(bf16, 80);    \
     if (dtype == 1 && d == 128) return (int)CALL(bf16, 128);  \
     return (int)cudaErrorInvalidValue;                      \
   } while (0)

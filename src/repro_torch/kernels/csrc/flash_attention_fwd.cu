@@ -67,17 +67,6 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// max(a, b) that returns NaN when either is NaN (max.NaN.f32): fmaxf drops
-// a NaN operand, so a NaN score would leave the running max, l and lse
-// finite where the plain version (torch.amax) and the reference
-// (jnp.maximum) give NaN.  One instruction, as fmaxf, and the same value
-// as fmaxf on any two numbers (up to the sign of a zero).
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float y;
-  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(y) : "f"(a), "f"(b));
-  return y;
-}
-
 // ---------------------------------------------------------------------------
 // copies
 // ---------------------------------------------------------------------------
@@ -388,10 +377,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (valid_len <= 0) valid_len = s;
   if (dtype == 0 && d == 64)
     return launch<float, 64>(q, k, v, o, lse, bh, s, causal, valid_len, st);
+  if (dtype == 0 && d == 80)
+    return launch<float, 80>(q, k, v, o, lse, bh, s, causal, valid_len, st);
   if (dtype == 0 && d == 128)
     return launch<float, 128>(q, k, v, o, lse, bh, s, causal, valid_len, st);
   if (dtype == 1 && d == 64)
     return launch<bf16, 64>(q, k, v, o, lse, bh, s, causal, valid_len, st);
+  if (dtype == 1 && d == 80)
+    return launch<bf16, 80>(q, k, v, o, lse, bh, s, causal, valid_len, st);
   if (dtype == 1 && d == 128)
     return launch<bf16, 128>(q, k, v, o, lse, bh, s, causal, valid_len, st);
   return (int)cudaErrorInvalidValue;

@@ -314,7 +314,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
       float mx = m[r];
 #pragma unroll
       for (int kk = 0; kk < KPG; ++kk)
-        if ((kk * S::WK + wk) * S::KPW + kg < valid) mx = fmaxf(mx, p[kk][r]);
+        if ((kk * S::WK + wk) * S::KPW + kg < valid)
+          mx = max_nan(mx, p[kk][r]);
       const float corr = expf(m[r] - mx);
       m[r] = mx;
       l[r] *= corr;
@@ -380,7 +381,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
     for (int r = 0; r < RPW; ++r) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
       const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
-      const float mx = fmaxf(m[r], mo);
+      const float mx = max_nan(m[r], mo);
       const float ca = expf(m[r] - mx), cb = expf(mo - mx);
       l[r] = l[r] * ca + lo * cb;
 #pragma unroll
@@ -425,7 +426,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
       const int g = idx < GD ? idx / D : idx - GD;
       float gm = NEG_INF;
 #pragma unroll
-      for (int w = 0; w < WK; ++w) gm = fmaxf(gm, m_w[w * G + g]);
+      for (int w = 0; w < WK; ++w) gm = max_nan(gm, m_w[w * G + g]);
       float sum = 0.f;
 #pragma unroll
       for (int w = 0; w < WK; ++w)
@@ -467,7 +468,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r) {
       mr[r] = r < csize ? gather[r * slot + sl + g] : NEG_INF;
-      gm = fmaxf(gm, mr[r]);
+      gm = max_nan(gm, mr[r]);
     }
     float sum = 0.f;
 #pragma unroll

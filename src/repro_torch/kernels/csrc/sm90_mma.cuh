@@ -35,6 +35,18 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// max(a, b) that returns NaN when either is NaN (max.NaN.f32), the flash
+// forward's and the flash-decode kernels' maxima: fmaxf drops a NaN
+// operand, so a NaN score would leave the running max, l and lse (or the
+// partial's m) finite where the plain versions (torch.amax) and the
+// reference (jnp.maximum) give NaN.  One instruction, as fmaxf, and the
+// same value as fmaxf on any two numbers (up to the sign of a zero).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(y) : "f"(a), "f"(b));
+  return y;
+}
+
 // 2^x (ex2.approx, ~2^-22 relative; 2^-inf = 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;

@@ -10,8 +10,13 @@ engine (default), the router over replicas (``--replicas N`` or
       --reduced --device cpu --batch 2 --requests 4 --prompt-len 24
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --reduced --device cpu --batch 2 --requests 4 --prompt-len 24 --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-moe-16b --reduced --device cpu --batch 2 \\
+      --requests 4 --prompt-len 24
 
-``--batch`` is the slot count of each replica (the batch of the legacy
+``--arch`` takes every preset (``repro_torch.configs.ARCHS``); the
+frontend presets serve their token path (decode embeds tokens, as the
+reference's does).  ``--batch`` is the slot count of each replica (the batch of the legacy
 path).  The engine admits ``--requests`` ragged requests through the
 prompt bucket ladder and backfills slots as generations finish.
 ``--paged`` serves from a shared KV page pool (``--page-size`` tokens per
@@ -33,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, reduced as reduce_cfg
+from repro_torch.configs import ARCHS, get_arch, reduced as reduce_cfg
 from repro_torch.data import SyntheticCorpus
 from repro_torch.kernels import resolve_device
 from repro_torch.serve import (POLICIES, ROUTES, InferenceEngine, Request,
@@ -248,7 +253,7 @@ def serve_router(arch: str, use_reduced: bool, n_slots: int, prompt_len: int,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="gpt2-117m")
+    p.add_argument("--arch", default="gpt2-117m", choices=sorted(ARCHS))
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--batch", type=int, default=4,

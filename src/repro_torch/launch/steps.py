@@ -87,6 +87,16 @@ class SketchSigns:
         return got
 
 
+def loss_grads(loss: torch.Tensor,
+               leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The gradient of ``loss`` for each leaf, zeros for a leaf the loss
+    does not reach (an audio model's token table), as ``jax.grad``
+    gives."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, leaves)]
+
+
 def _vector(x: Any, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -117,7 +127,7 @@ def sharded_grads(model, params, batch: Dict[str, torch.Tensor], k: int,
     for i in range(k):
         shard = {key: v[i * rows:(i + 1) * rows] for key, v in batch.items()}
         loss, metrics = model.loss(params, shard)
-        grads = list(torch.autograd.grad(loss, leaves))
+        grads = loss_grads(loss, leaves)
         with torch.no_grad():
             _scale_grads(grads, grad_scale, groups)
             sq = leaf_sq_norms(grads, groups)
@@ -192,7 +202,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
                     gns_tel["leaf_gns_sketch"] = torch.stack(sketches)
         else:
             loss, metrics = model.loss(params, batch)
-            grads = list(torch.autograd.grad(loss, leaves))
+            grads = loss_grads(loss, leaves)
             with torch.no_grad():
                 _scale_grads(grads, grad_scale, groups)
             metrics = {k_: v.detach() for k_, v in metrics.items()}

@@ -10,6 +10,9 @@ Usable as a library (``train(tc, ...)``, ``Trainer``) and as a CLI:
       --reduced --device cpu --steps 12 --seq 64 --batch 4 --slw
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
       --reduced --device cpu --steps 12 --seq 64 --batch 4 --slw
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-moe-16b --reduced --device cpu --steps 12 --seq 64 \\
+      --batch 4 --slw --duration 6 --eval-interval 6
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 12 --seq 64 --batch 4 --slw --ckpt-dir /tmp/ck \\
       --ckpt-interval 5 [--resume] [--var-lr-throttle]
@@ -25,6 +28,10 @@ The loop is the paper's joint recipe: the regulator stack plans the step
 batch is row-sliced and truncated/repacked -> the train step (loss, its
 gradient through the flash-attention, WKV-6 or SSD kernels, the AdamW
 chain) -> loss ratio and Adam-variance telemetry go back into the stack.
+``--arch`` takes every preset: a vision preset's patch prefix stays out
+of the SLW pacing, an audio preset's frames are cut with the tokens, and
+a MoE's router metrics (``load_balance``, ``router_z``, ``dropped_frac``)
+go to the eval lines and the JSONL rows.
 Eval, checkpoints, drain, the watchdog and telemetry recording are
 ``TrainerHook``s.
 
@@ -60,7 +67,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.checkpoint import CheckpointManager, migrate_host_state
-from repro_torch.configs import get_arch, reduced as reduce_cfg
+from repro_torch.configs import ARCHS, get_arch, reduced as reduce_cfg
 from repro_torch.configs.base import (BatchWarmupConfig, GNSConfig,
                                       OptimizerConfig, RegulatorSpec,
                                       SLWConfig, TrainConfig)
@@ -79,6 +86,7 @@ from repro_torch.distributed.fault_tolerance import (DrainSignal, RetryPolicy,
 from repro_torch.kernels import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model_zoo
+from repro_torch.models.moe import AUX_KEYS as MOE_METRICS
 
 
 @dataclass
@@ -189,8 +197,10 @@ class TelemetryHook(TrainerHook):
 class MetricsJsonlHook(TrainerHook):
     """Appends one JSON row per step (StepPlan + StepTelemetry) to a file,
     flushed per step.  The optional scalars (``grad_norm_clipped``, the
-    ``gns_*`` pair) are written when finite; with per-leaf vectors, a
-    ``per_leaf`` dict, and the labels once, in the first such row."""
+    ``gns_*`` pair) are written when finite, a MoE's router metrics
+    (``load_balance``, ``router_z``, ``dropped_frac``) when the step has
+    them; with per-leaf vectors, a ``per_leaf`` dict, and the labels once,
+    in the first such row."""
 
     def __init__(self, path: str):
         self.path = path
@@ -213,6 +223,9 @@ class MetricsJsonlHook(TrainerHook):
             v = getattr(tele, k)
             if math.isfinite(v):
                 row[k] = v
+        for k in MOE_METRICS:
+            if k in metrics:
+                row[k] = metrics[k]
         if tele.per_leaf is not None:
             row["per_leaf"] = telemetry_lib.per_leaf_to_host(tele.per_leaf)
             if not self._wrote_labels:
@@ -244,10 +257,12 @@ class EvalHook(TrainerHook):
         ppl = float(np.exp(min(tr.eval_loss(ev), 30.0)))
         tr.result.val_ppl_history.append((tr.step, ppl))
         if not self.quiet:
+            moe = "".join(f" {k} {metrics[k]:.4f}" for k in MOE_METRICS
+                          if k in metrics)
             print(f"step {tr.step} tokens {tr.tokens_seen} "
                   f"loss {tele.loss:.4f} val_ppl {ppl:.2f} "
                   f"seqlen {plan.seq_len} batch {plan.batch_size} "
-                  f"lr {plan.lr:.2e}", flush=True)
+                  f"lr {plan.lr:.2e}{moe}", flush=True)
 
 
 class CheckpointHook(TrainerHook):
@@ -320,10 +335,11 @@ class Trainer:
         self.leaf_labels = telemetry_lib.param_labels(self.state["params"])
         corpus = SyntheticCorpus(vocab_size=cfg.vocab_size,
                                  seq_len=tc.seq_len, seed=tc.seed)
-        self.pipeline = DataPipeline(corpus, tc.global_batch)
+        self.pipeline = DataPipeline(corpus, tc.global_batch, model_cfg=cfg)
         self.stack: RegulatorStack = build_stack(
             tc, dp_size=self.dp_size,
-            warmup_steps_hint=tc.optimizer.warmup_steps)
+            warmup_steps_hint=tc.optimizer.warmup_steps,
+            prefix_tokens=cfg.prefix_tokens)
         self.tracker = LossRatioTracker()
         self.watchdog = StepWatchdog()
         self.ckpt = (CheckpointManager(tc.checkpoint_dir, tc.keep_checkpoints)
@@ -426,8 +442,12 @@ class Trainer:
 
     def to_device(self, batch: Dict[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.ascontiguousarray(v),
-                                   dtype=torch.int64).to(self.device)
+        """Token ids as int64, frontend embeddings as fp32."""
+        return {k: torch.as_tensor(
+                    np.ascontiguousarray(v),
+                    dtype=(torch.float32 if np.issubdtype(v.dtype,
+                                                          np.floating)
+                           else torch.int64)).to(self.device)
                 for k, v in batch.items()}
 
     @torch.no_grad()
@@ -612,7 +632,7 @@ def build_config(args) -> TrainConfig:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="gpt2-117m")
+    p.add_argument("--arch", default="gpt2-117m", choices=sorted(ARCHS))
     p.add_argument("--reduced", action="store_true",
                    help="reduced same-family config (CPU-trainable)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -26,7 +26,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.kernel import gather_pages
 from repro_torch.kernels.flash_decode.ops import (flash_decode,
                                                   flash_decode_paged)
-from repro_torch.models.layers import ParamDef, apply_rope, rms_norm
+from repro_torch.models.layers import (ParamDef, apply_rope, rms_norm,
+                                       rope_tables)
 
 NEG_INF = -1e30
 
@@ -54,9 +55,10 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     """q, k, v (B, S, heads, D); ``positions`` (S,) or (B, S) rotate q and
     k where ``cfg.pos_emb`` is "rope" (which needs them) and are unused
     otherwise."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    # (B, S, d) @ (d, heads x D): one matmul each, as the reference's
+    # einsum contracts d
+    q, k, v = ((x @ params[w].flatten(1)).unflatten(-1, params[w].shape[1:])
+               for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if cfg.qk_norm:
@@ -65,9 +67,15 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.pos_emb == "rope":
         if positions is None:
             raise ValueError('pos_emb="rope" needs the positions')
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        tables = rope_tables(positions, q.shape[-1], cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, tables)
+        k = apply_rope(k, positions, cfg.rope_theta, tables)
     return q, k, v
+
+
+def _out_proj(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """ctx (B, S, H, D) through wo (H, D, d), one matmul."""
+    return ctx.flatten(-2) @ wo.flatten(0, 1)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,12 +141,14 @@ def full_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     q, k, v = _project_qkv(params, x, cfg,
                            torch.arange(x.shape[1], device=x.device))
     ctx = _context(q, k, v, cfg, block_kv)
-    return torch.einsum("bshk,hkd->bsd", ctx, params["wo"]), (k, v)
+    return _out_proj(ctx, params["wo"]), (k, v)
 
 
-def _write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+def _write_cache(caches: Tuple[torch.Tensor, ...],
+                 news: Tuple[torch.Tensor, ...], pos: torch.Tensor,
                  active: Optional[torch.Tensor]) -> None:
-    """Write ``new`` (B, s_q, KV, D) into ``cache`` (B, S_max, KV, D) in place.
+    """Write each ``new`` (B, s_q, KV, D) into its ``cache`` (B, S_max, KV,
+    D) in place (k and v share the index arithmetic).
 
     Per-slot single token (``attention.py:248-259``): rows that are inactive
     or at/past capacity keep their old contents (the reference drops them
@@ -147,24 +157,26 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     pos[b]..; scalar pos (``:270-274``) writes every row at pos..  Start
     indices clamp so the update fits, as ``dynamic_update_slice`` does.
     """
-    b, s_q = new.shape[:2]
-    s_max = cache.shape[1]
-    rows = torch.arange(b, device=cache.device)
+    b, s_q = news[0].shape[:2]
+    s_max = caches[0].shape[1]
+    rows = torch.arange(b, device=pos.device)
     if pos.dim() == 1 and s_q == 1:
         ok = pos < s_max
         if active is not None:
             ok = ok & active
         idx = pos.clamp_max(s_max - 1)
-        keep = cache[rows, idx]
-        cache[rows, idx] = torch.where(ok[:, None, None],
-                                       new[:, 0].to(cache.dtype), keep)
+        for cache, new in zip(caches, news):
+            keep = cache[rows, idx]
+            cache[rows, idx] = torch.where(ok[:, None, None],
+                                           new[:, 0].to(cache.dtype), keep)
         return
     start = pos.clamp(0, s_max - s_q)
-    idx = start.reshape(-1, 1) + torch.arange(s_q, device=cache.device)
-    if pos.dim() == 1:
-        cache[rows[:, None], idx] = new.to(cache.dtype)
-    else:
-        cache[:, idx[0]] = new.to(cache.dtype)
+    idx = start.reshape(-1, 1) + torch.arange(s_q, device=pos.device)
+    for cache, new in zip(caches, news):
+        if pos.dim() == 1:
+            cache[rows[:, None], idx] = new.to(cache.dtype)
+        else:
+            cache[:, idx[0]] = new.to(cache.dtype)
 
 
 PagedWrite = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -236,8 +248,7 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
         cache_k[pages, offs] = k[rows, 0].to(cache_k.dtype)
         cache_v[pages, offs] = v[rows, 0].to(cache_v.dtype)
     else:
-        _write_cache(cache_k, k, pos, active)
-        _write_cache(cache_v, v, pos, active)
+        _write_cache((cache_k, cache_v), (k, v), pos, active)
 
     use_kernel = wants_kernel(cfg.decode_backend, "decode_backend",
                               DECODE_BACKENDS)
@@ -265,5 +276,5 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
         p = torch.softmax(s, dim=-1)
         ctx = torch.einsum("bkgqj,bjkd->bkgqd", p.to(vc.dtype), vc)
         ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, s_q, h, d)
-    out = torch.einsum("bshk,hkd->bsd", ctx, params["wo"])
+    out = _out_proj(ctx, params["wo"])
     return out, cache_k, cache_v

@@ -8,6 +8,7 @@ per-layer dicts and loops over it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -106,23 +107,34 @@ def norm_def(d: int, kind: str) -> Dict[str, ParamDef]:
     return {"scale": ParamDef((d,), "ones"), "bias": ParamDef((d,), "zeros")}
 
 
+@functools.lru_cache(maxsize=None)
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
-    """The (D / 2,) rotary frequencies (``layers.py:152-154``)."""
+    """The (D / 2,) rotary frequencies (``layers.py:152-154``), computed
+    once per (head dim, theta, device): decode asks for them every layer
+    of every step.  Callers must not write to the tensor."""
     half = head_dim // 2
     return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotary positions, rotate-half convention (``layers.py:157-168``):
-    x (..., S, H, D) with positions (S,) or (..., S), in fp32 inside."""
-    d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin (..., S, 1, D / 2) of the rotary angles at positions (S,)
+    or (..., S), broadcasting over the heads; one pair serves q and k."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)
     angles = positions[..., None].float() * freqs  # (..., S, D / 2)
-    cos = torch.cos(angles)[..., None, :]  # broadcast over the heads
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """Rotary positions, rotate-half convention (``layers.py:157-168``):
+    x (..., S, H, D) with positions (S,) or (..., S), in fp32 inside;
+    ``tables`` are :func:`rope_tables` of the positions when the caller
+    has them."""
+    cos, sin = tables or rope_tables(positions, x.shape[-1], theta)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -1,20 +1,22 @@
-"""Uniform model API (``repro/models/model_zoo.py:18-109``): build, init,
-count, and the slot-cache specs of continuous batching, for the dense,
-rwkv and hybrid (Zamba-2) families."""
+"""Uniform model API (``repro/models/model_zoo.py:18-173``): build, init,
+count, the slot-cache specs of continuous batching, and the training batch
+layouts, for the dense, moe, rwkv and hybrid (Zamba-2) families."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoELM, moe_defs
 from repro_torch.models.rwkv6 import RWKV6LM, rwkv6_defs
 from repro_torch.models.transformer import DenseLM, dense_defs
 from repro_torch.models.zamba2 import Zamba2LM, zamba2_defs
 
-FAMILIES = {"dense": (DenseLM, dense_defs), "rwkv": (RWKV6LM, rwkv6_defs),
-            "hybrid": (Zamba2LM, zamba2_defs)}
+FAMILIES = {"dense": (DenseLM, dense_defs), "moe": (MoELM, moe_defs),
+            "rwkv": (RWKV6LM, rwkv6_defs), "hybrid": (Zamba2LM, zamba2_defs)}
 
 
 def _family(cfg: ModelConfig):
@@ -45,6 +47,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def param_count(cfg: ModelConfig) -> int:
     return L.param_count(model_defs(cfg))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Per-token active parameters (``model_zoo.py:53-60``): a MoE's routed
+    experts count ``top_k / n_experts`` of theirs."""
+    total = param_count(cfg)
+    if cfg.family != "moe":
+        return total
+    e, k = cfg.n_experts, cfg.top_k
+    routed = 3 * cfg.n_layers * cfg.d_model * cfg.d_ff * e
+    return total - routed + routed * k // e
 
 
 def decode_cache_axes(model) -> Dict[str, tuple]:
@@ -79,3 +92,38 @@ def init_decode_cache(model, n_slots: int, cache_len: int,
     return {name: torch.zeros(shape, dtype=kinds[kind], device=device)
             for name, (shape, kind) in
             decode_cache_specs(model, n_slots, cache_len).items()}
+
+
+def train_batch_specs(cfg: ModelConfig, batch: int, seq_len: int
+                      ) -> Dict[str, Tuple[tuple, str]]:
+    """(shape, kind) of each training batch leaf (``model_zoo.py:116-137``);
+    kind "int" (token ids) or "float" (frontend embeddings, the model's
+    dtype).  ``audio_frames``: frames (B, S, d) and labels;
+    ``vision_patches``: a (B, P, d) patch prefix and S - P text tokens."""
+    if cfg.frontend == "audio_frames":
+        return {"frames": ((batch, seq_len, cfg.d_model), "float"),
+                "labels": ((batch, seq_len), "int")}
+    if cfg.frontend == "vision_patches":
+        p = cfg.prefix_tokens
+        return {"patch_embeds": ((batch, p, cfg.d_model), "float"),
+                "tokens": ((batch, seq_len - p), "int"),
+                "labels": ((batch, seq_len - p), "int")}
+    return {"tokens": ((batch, seq_len), "int"),
+            "labels": ((batch, seq_len), "int")}
+
+
+def make_train_batch(seed: int, cfg: ModelConfig, batch: int, seq_len: int
+                     ) -> Dict[str, np.ndarray]:
+    """A random host batch of :func:`train_batch_specs`' layout
+    (``model_zoo.py:160-173``, drawn from a numpy seed instead of a jax
+    key): token ids uniform in the vocab (int32), embeddings 0.02 x a
+    standard normal (float32)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (shape, kind) in train_batch_specs(cfg, batch, seq_len).items():
+        if kind == "int":
+            out[name] = rng.integers(0, cfg.vocab_size, shape,
+                                     dtype=np.int32)
+        else:
+            out[name] = (0.02 * rng.standard_normal(shape)).astype(np.float32)
+    return out

@@ -1,0 +1,190 @@
+"""Fine-grained MoE, shared + routed experts (``repro/models/moe.py``).
+
+Top-k token-choice routing into a capacity buffer.  Dispatch is sort-free:
+the position of each (token, expert) assignment inside its expert's buffer
+is a cumulative count over a one-hot matrix, and assignments past the
+capacity are dropped.  ``row_local`` ranks and sizes the buffers per batch
+row; ``global`` ranks over all B * S tokens, which is the row-local
+dispatch of the batch flattened into one row.  The experts run as batched
+matmuls over the expert axis (no custom kernel: the reference's are
+``jnp.einsum`` outside any Pallas call).  The reference's sharding
+constraints have no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (ParamDef, mlp_apply, mlp_def,
+                                       norm_def, round_up)
+from repro_torch.models.transformer import DenseLM
+
+AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
+Aux = Optional[Dict[str, torch.Tensor]]
+
+
+def moe_ffn_def(cfg: ModelConfig) -> Dict[str, Any]:
+    """``moe.py:29-41``: the router (d, E), the experts' SwiGLU weights
+    (E, d, f) / (E, f, d) and the shared experts as one SwiGLU MLP of
+    width ``d_ff * n_shared_experts``."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(f)
+    defs: Dict[str, Any] = {
+        "router": ParamDef((d, e), "normal", s_in),
+        "w_gate": ParamDef((e, d, f), "normal", s_in),
+        "w_up": ParamDef((e, d, f), "normal", s_in),
+        "w_down": ParamDef((e, f, d), "normal", s_out),
+    }
+    if cfg.n_shared_experts:
+        defs["shared"] = mlp_def(d, cfg.d_ff * cfg.n_shared_experts, "swiglu")
+    return defs
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``tokens`` tokens (``moe.py:44-46``)."""
+    return max(1, int(math.ceil(
+        tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)))
+
+
+def top_k_experts(probs: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routing decision: the ``k`` largest router probabilities of
+    each token and their experts, largest first (``jax.lax.top_k``)."""
+    return torch.topk(probs, k, dim=-1)
+
+
+class Routing(NamedTuple):
+    """One call's routing of x (B, S, d) into (B, E, C) slots."""
+
+    logits: torch.Tensor      # (B, S, E) fp32 router logits
+    probs: torch.Tensor       # (B, S, E) their softmax
+    gate: torch.Tensor        # (B, S, k) renormalized top-k probabilities
+    expert_idx: torch.Tensor  # (B, S, k) int64
+    onehot: torch.Tensor      # (B, S*k, E) bool, the assignments
+    keep: torch.Tensor        # (B, S*k) bool, inside the capacity
+    dest: torch.Tensor        # (B, S*k) slot e*C + pos, or E*C (dropped)
+    c: int                    # capacity
+
+
+def route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
+          ) -> Routing:
+    """Router, top-k and the per-row capacity ranking (``moe.py:119-132``)."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = capacity(s, cfg)
+    logits = x.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert_idx = top_k_experts(probs, k)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = expert_idx.reshape(b, s * k)
+    # one-hot by comparison: F.one_hot checks its input's range on the
+    # host, a device sync each call
+    onehot = flat_e[..., None] == torch.arange(e, device=x.device)
+    pos = onehot.cumsum(dim=1).gather(2, flat_e[..., None])[..., 0] - 1
+    keep = pos < c
+    dest = torch.where(keep, flat_e * c + pos, e * c)
+    return Routing(logits, probs, gate, expert_idx, onehot, keep, dest, c)
+
+
+def moe_ffn_rowlocal(params, x: torch.Tensor, cfg: ModelConfig,
+                     with_aux: bool = True) -> Tuple[torch.Tensor, Aux]:
+    """Row-local dispatch (``moe.py:105-176``): x (B, S, d) -> (y, aux),
+    aux None unless ``with_aux`` (serving reads no aux loss).
+
+    Each row's slots are filled through an inverse slot -> assignment map
+    (drops all land in the one sentinel slot E*C, which is cut off; an
+    empty slot reads a zero row appended to x), the experts run as three
+    ``bmm`` over the expert axis, and each token sums its assignments'
+    outputs times their gates (a dropped one reads a zero row, so its
+    gate times ``keep`` is the reference's same zero).
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = route(params["router"], x, cfg)
+    c = r.c
+    inv = torch.full((b, e * c + 1), s * k, dtype=torch.int64,
+                     device=x.device)
+    inv.scatter_(1, r.dest, torch.arange(s * k, device=x.device)
+                 .expand(b, s * k))
+    # (B, E*C): the token in each slot, s (the zero row) where empty
+    tok = inv[:, :e * c] // k
+    buf = F.pad(x, (0, 0, 0, 1)).gather(1, tok[..., None].expand(-1, -1, d))
+    xb = buf.reshape(b, e, c, d).transpose(0, 1).reshape(e, b * c, d)
+    h = F.silu(torch.bmm(xb, params["w_gate"])) * torch.bmm(
+        xb, params["w_up"])
+    y_buf = torch.bmm(h, params["w_down"]).reshape(e, b, c, d)
+    y_flat = F.pad(y_buf.transpose(0, 1).reshape(b, e * c, d), (0, 0, 0, 1))
+    y_assign = y_flat.gather(1, r.dest[..., None].expand(-1, -1, d))
+    w = r.gate.reshape(b, s * k, 1).to(x.dtype)
+    y = (y_assign * w).reshape(b, s, k, d).sum(dim=2)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(params["shared"], x, "swiglu")
+    if not with_aux:
+        return y, None
+    me = r.probs.reshape(-1, e).mean(dim=0)
+    ce_frac = r.onehot.sum(dim=(0, 1)).float() / (b * s * k)
+    aux = {
+        "load_balance": e * torch.sum(me * ce_frac),
+        "router_z": torch.logsumexp(r.logits, dim=-1).square().mean(),
+        "dropped_frac": 1.0 - r.keep.float().mean(),
+    }
+    return y, aux
+
+
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
+            with_aux: bool = True) -> Tuple[torch.Tensor, Aux]:
+    """Global dispatch (``moe.py:49-102``): one capacity buffer over all
+    B * S tokens, ranked in token order, which is the row-local dispatch
+    of the batch flattened into a single row."""
+    b, s, d = x.shape
+    y, aux = moe_ffn_rowlocal(params, x.reshape(1, b * s, d), cfg, with_aux)
+    return y.reshape(b, s, d), aux
+
+
+def apply_moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
+                  with_aux: bool = True):
+    """``moe.py:179-182``."""
+    if cfg.moe_dispatch == "row_local":
+        return moe_ffn_rowlocal(params, x, cfg, with_aux)
+    return moe_ffn(params, x, cfg, with_aux)
+
+
+def moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    """``moe.py:185-201``: always an ``lm_head``, never ``pos_embed``."""
+    d = cfg.d_model
+    pv = round_up(cfg.vocab_size, 128)
+    layer = {"ln1": norm_def(d, cfg.norm),
+             "attn": attn_mod.attention_def(cfg),
+             "ln2": norm_def(d, cfg.norm),
+             "moe": moe_ffn_def(cfg)}
+    return {"embed": ParamDef((pv, d), "embed", 0.02),
+            "layers": [layer] * cfg.n_layers,
+            "final_norm": norm_def(d, cfg.norm),
+            "lm_head": ParamDef((d, pv), "normal", 1.0 / math.sqrt(d))}
+
+
+@dataclass
+class MoELM(DenseLM):
+    """MoE decoder (``moe.py:204-310``): ``DenseLM``'s attention, prefill
+    and per-slot / paged decode, the feed-forward half swapped for shared
+    + routed experts.  ``loss`` adds the router's aux losses, averaged over
+    the layers: ``total = loss + router_aux_coef * load_balance +
+    router_z_coef * router_z``; its metrics carry the three averages."""
+
+    def _ffn(self, lp, h: torch.Tensor, with_aux: bool = True):
+        return apply_moe_ffn(lp["moe"], h, self.cfg, with_aux)
+
+    def _metrics(self, loss, denom, auxes):
+        cfg = self.cfg
+        mean = {key: torch.stack([a[key] for a in auxes]).mean()
+                for key in AUX_KEYS}
+        total = (loss + cfg.router_aux_coef * mean["load_balance"]
+                 + cfg.router_z_coef * mean["router_z"])
+        return total, {"loss": loss, "tokens": denom, **mean}

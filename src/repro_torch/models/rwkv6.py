@@ -210,7 +210,7 @@ class RWKV6LM:
             raise ValueError(f"unknown remat policy {self.remat!r}")
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_inputs(params, tokens, self.cfg,
+        x = embed_inputs(params, {"tokens": tokens}, self.cfg,
                          torch.zeros((), dtype=torch.int64,
                                      device=tokens.device))
         return layer_norm(x, params["ln_in"]["scale"],

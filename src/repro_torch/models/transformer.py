@@ -2,7 +2,9 @@
 (``repro/models/transformer.py:26-213``).
 
 GPT-2 style when the config says so: learned positions, LayerNorm, GELU
-MLPs, tied embeddings, vocab padded to a multiple of 128.  A Python loop
+MLPs, tied embeddings, vocab padded to a multiple of 128; the llama-style
+presets with rope, RMSNorm, SwiGLU, GQA, qk-norm or QKV bias; and the two
+frontend stubs (``audio_frames``, ``vision_patches``).  A Python loop
 over the per-layer parameter list replaces ``lax.scan``.  The model runs in
 the dtype of the parameters it is given (the trainer and the engine run
 fp32).  ``remat="full"`` recomputes each block in the backward
@@ -46,18 +48,30 @@ def dense_defs(cfg: ModelConfig) -> Dict[str, Any]:
     return defs
 
 
-def embed_inputs(params, tokens: torch.Tensor, cfg: ModelConfig,
+def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                  start_pos: torch.Tensor) -> torch.Tensor:
-    """Token (+ learned position) embedding of tokens (B, S).
+    """Token or frontend embedding (``transformer.py:49-71``), in the
+    dtype of the embedding table.
 
-    ``start_pos`` is a 0-dim tensor (positions (S,)) or a (B,) vector
-    (positions (B, S)).  Position indices clamp at the table's end: only a
-    slot saturated at a capacity equal to ``max_seq_len`` reaches it, and
-    its output is never surfaced (the reference's gather fills there).
+    ``audio_frames``: the batch's ``frames`` (B, S, d) replace the token
+    embedding; ``vision_patches``: its ``patch_embeds`` (B, P, d) are
+    prepended to it.  Without those keys (decode) the tokens (B, S) are
+    embedded.  Learned positions run over the whole sequence, prefix
+    included, from ``start_pos``: a 0-dim tensor (positions (S,)) or a
+    (B,) vector (positions (B, S)).  Position indices clamp at the table's
+    end: only a slot saturated at a capacity equal to ``max_seq_len``
+    reaches it, and its output is never surfaced (the reference's gather
+    fills there).
     """
-    x = params["embed"][tokens]
+    dtype = params["embed"].dtype
+    if cfg.frontend == "audio_frames" and "frames" in batch:
+        x = batch["frames"].to(dtype)
+    else:
+        x = params["embed"][batch["tokens"]]
+        if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)
     if cfg.pos_emb == "learned":
-        offs = torch.arange(tokens.shape[1], device=tokens.device)
+        offs = torch.arange(x.shape[1], device=x.device)
         positions = (start_pos[:, None] + offs if start_pos.dim()
                      else start_pos + offs)
         table = params["pos_embed"]
@@ -72,18 +86,20 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
-def _block(lp, x: torch.Tensor, cfg: ModelConfig,
-           block_kv: int) -> torch.Tensor:
-    """One pre-norm block, the training forward (``transformer.py:72-83``)."""
-    h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
-    a, _ = attn_mod.full_attention(lp["attn"], h, cfg, block_kv=block_kv)
-    x = x + a
-    h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
+def _zero_pos(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=x.device)
+
+
+def _first(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return batch["frames"] if "frames" in batch else batch["tokens"]
 
 
 @dataclass
 class DenseLM:
+    """``transformer.py:86-213``.  A layer's feed-forward half is
+    :meth:`_ffn`, which ``MoELM`` (``models/moe.py``) replaces; the rest of
+    the skeleton is shared."""
+
     cfg: ModelConfig
     block_kv: int = 512
     remat: str = "full"
@@ -94,39 +110,63 @@ class DenseLM:
         if self.remat not in REMATS:
             raise ValueError(f"unknown remat policy {self.remat!r}")
 
+    def _ffn(self, lp, h: torch.Tensor, with_aux: bool = True
+             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """The feed-forward half of a layer -> (output, aux losses or
+        None; serving asks for none)."""
+        return mlp_apply(lp["mlp"], h, self.cfg.mlp), None
+
+    def _block(self, lp, x: torch.Tensor):
+        """One pre-norm block, the training forward (``transformer.py:72-83``)
+        -> (x, aux)."""
+        cfg = self.cfg
+        h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+        a, _ = attn_mod.full_attention(lp["attn"], h, cfg,
+                                       block_kv=self.block_kv)
+        x = x + a
+        y, aux = self._ffn(lp, apply_norm(lp["ln2"], x, cfg.norm,
+                                          cfg.norm_eps))
+        return x + y, aux
+
+    def _metrics(self, loss: torch.Tensor, denom: torch.Tensor, auxes: list
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return loss, {"loss": loss, "tokens": denom}
+
     def loss(self, params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean next-token loss over tokens (B, S) against labels (B, S)
-        (``transformer.py:104-120``) -> (loss, {"loss", "tokens"})."""
+        """Mean next-token loss against labels (B, S) (``transformer.py:
+        104-120``) -> (loss, {"loss", "tokens"}); the logits of a patch
+        prefix are dropped.  A vision batch without its prefix (the
+        pipeline's text-only eval batches) is a text batch here; the
+        reference raises on it."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = embed_inputs(params, tokens, cfg,
-                         torch.zeros((), dtype=torch.int64,
-                                     device=tokens.device))
+        x = embed_inputs(params, batch, cfg, _zero_pos(_first(batch)))
+        auxes = []
         for lp in params["layers"]:
             if self.remat == "full":
-                x = torch.utils.checkpoint.checkpoint(
-                    _block, lp, x, cfg, self.block_kv, use_reentrant=False)
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    self._block, lp, x, use_reentrant=False)
             else:
-                x = _block(lp, x, cfg, self.block_kv)
+                x, aux = self._block(lp, x)
+            auxes.append(aux)
         logits = _logits(params, x, cfg)
+        if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+            logits = logits[:, batch["patch_embeds"].shape[1]:, :]
         loss, denom = cross_entropy_loss(logits, batch["labels"],
                                          batch.get("loss_mask"),
                                          cfg.vocab_size)
-        return loss, {"loss": loss, "tokens": denom}
+        return self._metrics(loss, denom, auxes)
 
     @torch.no_grad()
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
-        """Full forward over tokens (B, S) -> (last-position logits (B, V),
-        cache {"k", "v": (L, B, cache_len, KV, D), "pos": 0-dim S})."""
+        """Full forward over the batch's S positions (prefix included) ->
+        (last-position logits (B, V), cache {"k", "v": (L, B, cache_len,
+        KV, D), "pos": 0-dim S})."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        b, s = tokens.shape
+        x = embed_inputs(params, batch, cfg, _zero_pos(_first(batch)))
+        b, s = x.shape[:2]
         cache_len = cache_len or s
-        x = embed_inputs(params, tokens, cfg,
-                         torch.zeros((), dtype=torch.int64,
-                                     device=tokens.device))
         shape, dtype = self.cache_shapes(b, cache_len)["k"][0], x.dtype
         ks = torch.zeros(shape, dtype=dtype, device=x.device)
         vs = torch.zeros(shape, dtype=dtype, device=x.device)
@@ -137,8 +177,8 @@ class DenseLM:
             ks[i, :, :s] = k
             vs[i, :, :s] = v
             x = x + a
-            h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, cfg.mlp)
+            x = x + self._ffn(lp, apply_norm(lp["ln2"], x, cfg.norm,
+                                             cfg.norm_eps), False)[0]
         logits = _logits(params, x[:, -1:, :], cfg)[:, 0]
         pos = torch.tensor(s, dtype=torch.int64, device=x.device)
         return logits, {"k": ks, "v": vs, "pos": pos}
@@ -163,15 +203,15 @@ class DenseLM:
         write = (attn_mod.paged_write_rows(page_table, pos, active,
                                            cache["k"].shape[2])
                  if page_table is not None else None)
-        x = embed_inputs(params, tokens, cfg, pos)
+        x = embed_inputs(params, {"tokens": tokens}, cfg, pos)
         for i, lp in enumerate(params["layers"]):
             h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
             a, _, _ = attn_mod.decode_attention(
                 lp["attn"], h, cfg, cache["k"][i], cache["v"][i], pos,
                 active=active, page_table=page_table, paged_write=write)
             x = x + a
-            h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, cfg.mlp)
+            x = x + self._ffn(lp, apply_norm(lp["ln2"], x, cfg.norm,
+                                             cfg.norm_eps), False)[0]
         logits = _logits(params, x[:, :1, :], cfg)[:, 0]
         if page_table is not None:
             cap = page_table.shape[1] * cache["k"].shape[2]  # pages x size

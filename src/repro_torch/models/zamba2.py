@@ -89,7 +89,7 @@ class Zamba2LM:
                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
         if pos is None:
             pos = torch.zeros((), dtype=torch.int64, device=tokens.device)
-        return embed_inputs(params, tokens, self.cfg, pos)
+        return embed_inputs(params, {"tokens": tokens}, self.cfg, pos)
 
     def _run(self, fn, *args):
         if self.remat == "full":

@@ -5,8 +5,8 @@
   a missing leaf, the crc32 in the manifest, a flipped byte, a shape
   mismatch, an unreadable manifest, a legacy manifest without crc32, and
   ``restore_latest``'s quarantine and fallback (and all corrupt).
-* The format is the JAX package's: a checkpoint of reduced gpt2 and of
-  reduced zamba2 written by the port restores in ``repro.checkpoint`` with
+* The format is the JAX package's: a checkpoint of reduced gpt2, zamba2
+  and deepseek-moe-16b written by the port restores in ``repro.checkpoint`` with
   the JAX tree as ``like``, and the reverse, every leaf bit-equal; the
   port's Trainer resumes a checkpoint the JAX Trainer wrote from the
   port's, with the same controller state.
@@ -273,7 +273,8 @@ def _jax_state(jx, arch, seed):
     return state
 
 
-@pytest.mark.parametrize("arch", ["gpt2-117m", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["gpt2-117m", "zamba2-2.7b",
+                                  "deepseek-moe-16b"])
 def test_port_checkpoint_restores_in_the_reference(jx, tmp_path, arch):
     ref_state = _jax_state(jx, arch, 3)
     cfg = reduced(get_arch(arch))
@@ -289,7 +290,8 @@ def test_port_checkpoint_restores_in_the_reference(jx, tmp_path, arch):
     assert host == {"step": 11}
 
 
-@pytest.mark.parametrize("arch", ["gpt2-117m", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["gpt2-117m", "zamba2-2.7b",
+                                  "deepseek-moe-16b"])
 def test_reference_checkpoint_restores_in_the_port(jx, tmp_path, arch):
     ref_state = _jax_state(jx, arch, 4)
     d = str(tmp_path / "ck")

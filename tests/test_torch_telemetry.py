@@ -1,8 +1,9 @@
 """Per-leaf telemetry of the port against the JAX package, on the CPU.
 
 * The leaf-group map: the port's labels equal ``repro``'s
-  ``param_labels`` for reduced gpt2, rwkv6 and zamba2 and at full size
-  (16, 26 and 29 leaves), and each group holds its layers in order.
+  ``param_labels`` for reduced gpt2, rwkv6, zamba2 and deepseek-moe-16b
+  and at full size (16, 26, 29 and 16 leaves), and each group holds its
+  layers in order.
 * ``leaf_norms`` and ``leaf_var_max`` on a transferred tree against the
   reference's, within 1e-6 relative: fp32 sums of squares reduced per
   layer and then per group instead of over the stacked leaf.
@@ -34,7 +35,7 @@ from repro_torch.models import model_zoo
 from repro_torch.optim.transforms import tree_leaves
 
 CPU = torch.device("cpu")
-ARCHS = ("gpt2-117m", "rwkv6-7b", "zamba2-2.7b")
+ARCHS = ("gpt2-117m", "rwkv6-7b", "zamba2-2.7b", "deepseek-moe-16b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -87,7 +88,8 @@ def test_labels_equal_the_reference(jx, arch):
 
 
 @pytest.mark.parametrize("arch,n", [("gpt2-117m", 16), ("rwkv6-7b", 26),
-                                    ("zamba2-2.7b", 29)])
+                                    ("zamba2-2.7b", 29),
+                                    ("deepseek-moe-16b", 16)])
 def test_full_size_labels(jx, arch, n):
     ref = jx.telemetry.param_labels(_jax_params(jx, arch, small=False))
     meta = bridge._meta_params(model_zoo.model_defs(_port_cfg(arch, False)))
