@@ -103,7 +103,16 @@ weights from a seed:
   (plans, finite losses, launch counts, the router's metrics a step,
   every gradient leaf of two batches against the blockwise backend under
   pinned routing, and a planted fault in the backward that the gradient
-  check must catch).
+  check must catch); the flash kernels at qwen3-32b's head dim 80 timed;
+* the distributed slice on a one-rank NCCL group and a (1, 1) mesh
+  (phase ``distributed``): 8 SLW steps of the ``fsdp`` rules' sharded
+  train step against the unsharded one from the train phase's initial
+  state (every loss and parameter, the flash launch counts),
+  ``flash_decode_sharded`` on the decode kernel and 4 virtual sequence
+  shards' kernel partials merged on the one card against
+  ``reference_decode``, 20 error-feedback compressed all-reduces of a
+  gpt2-117m gradient, and ``model_flops`` against ``roofline.op_cost``'s
+  count of one 16 x 1024 step with its share of the fp32 peak.
 
 A NaN planted in q, k or v must leave the flash forward and backward
 kernels' and the two decode kernels' outputs non-finite wherever their
@@ -135,11 +144,15 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense FLOP/s by
-# input type (fp32 on the CUDA cores, bf16 on the tensor cores)
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
+from repro_torch.roofline import hw  # noqa: E402
+
+# the H100 SXM's data-sheet peaks (``repro_torch.roofline.hw``): HBM
+# bytes/s; dense FLOP/s by input type (fp32 on the CUDA cores, bf16 and
+# TF32 on the tensor cores)
+HBM_BYTES_S = hw.HBM_BW
+PEAK_FLOPS = {torch.float32: hw.PEAK_FLOPS_FP32,
+              torch.bfloat16: hw.PEAK_FLOPS_BF16}
+TF32_FLOPS = hw.PEAK_FLOPS_TF32
 H, D = 12, 64  # gpt2-117m heads and head dim
 ZAMBA_H, ZAMBA_D = 32, 80  # zamba2-2.7b's shared attention block
 PROMPT_LEN, GEN = 512, 64  # the served requests' longest prompt and budget
@@ -4173,8 +4186,9 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
     leaf of the first step's batch at the initial weights and of the last
     step's (8 x 1024) at the trained weights, at the norms' eps raised to
     ZAMBA_GRAD_EPS with a planted fault that must break the limit, and
-    reported only at the model's own; then the first 8 steps' losses from
-    the same initial weights.  The weights
+    for the first batch reported only at the model's own (the trained
+    batch's report went to make room for phase ``distributed``); then the
+    first 8 steps' losses from the same initial weights.  The weights
     kept for those comparisons wait on the host: two more 9.7 GB copies
     beside the trainer's 38.8 GB of state and its activations would not
     fit on the card."""
@@ -4258,14 +4272,16 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
         batch, _ = trainer.stack.apply(trainer.pipeline.batch_at(i), plans[i])
         batch = trainer.to_device(batch)
         params = to_card(weights)
-        grads[f"{len(batch['tokens'])}x{plans[i].seq_len}"] = {
+        key = f"{len(batch['tokens'])}x{plans[i].seq_len}"
+        grads[key] = {
             "weights": "trained" if is_trained else "initial",
             f"eps_{ZAMBA_GRAD_EPS:g}": _compare_zamba_grads(
                 trainer.model, params, batch, ZAMBA_GRAD_EPS, GRAD_RTOL,
-                fault=True),
-            f"eps_{tc.model.norm_eps:g}": _compare_zamba_grads(
+                fault=True)}
+        if not is_trained:  # the report at the model's eps (first batch)
+            grads[key][f"eps_{tc.model.norm_eps:g}"] = _compare_zamba_grads(
                 trainer.model, params, batch, tc.model.norm_eps, math.inf,
-                host=not is_trained)}
+                host=True)
         del params
         torch.cuda.empty_cache()
     emit("train_zamba_grads", leaves=len(_leaf_names(init)),
@@ -4424,6 +4440,90 @@ def _gqa_check(d: int, g: int, kv: int, seed: int) -> dict:
     return errs
 
 
+def time_flash(h: int, d: int, fwd_shapes, bwd_b: int, what: str) -> dict:
+    """The flash kernels at H heads of D, fp32: the forward at each (B, S)
+    of ``fwd_shapes`` and the three backward kernels (and all three) at
+    ``bwd_b`` x S_TRAIN, each against its plain version on its timed
+    inputs, beside its plain version's time, SDPA's (the whole backward
+    for the dQ and dK/dV kernels, ``linalg.vecdot`` for delta) and its
+    bound."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain, flash_attention_bwd_plain,
+        flash_attention_bwd_preprocess,
+        flash_attention_bwd_preprocess_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    timing = {}
+    for b, s in fwd_shapes:
+        q, k, v = _attn_inputs(b, s, torch.float32, 5, h, d)
+        q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
+        bh = b * h
+        nbytes = 4 * bh * s * d * 4 + bh * s * 4
+        flops = 4 * d * _causal_pairs(bh, s)
+        t_bound, by = tc_bound(nbytes, flops)
+        timing[f"fwd_{b}x{s}"] = {
+            "max_abs_err": check_attention(q, k, v,
+                                           f"{what} timed {b}x{s}")[0],
+            **times(lambda: flash_attention_fwd(q, k, v),
+                    lambda: flash_attention_fwd_plain(q, k, v),
+                    lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=True)),
+            "bound_ms": t_bound, "bound_by": by,
+            "cuda_core_bound_ms": bound(nbytes, flops, torch.float32)[0]}
+        del q, k, v, q4, k4, v4
+    q, k, v = _attn_inputs(bwd_b, S_TRAIN, torch.float32, 5, h, d)
+    do = _attn_inputs(bwd_b, S_TRAIN, torch.float32, 6, h, d)[0]
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = flash_attention_bwd_preprocess(o, do)
+    err = dict(zip(("dq", "dk", "dv"), check_attention_bwd(
+        q, k, v, o, lse, do, f"{what} timed")))
+    q4, k4, v4 = (t.reshape(bwd_b, h, S_TRAIN, d).clone().requires_grad_()
+                  for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(bwd_b, h, S_TRAIN, d)
+    sdpa_bwd = lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                           retain_graph=True)
+    rest = (do, lse, delta)
+    sdpa = {"library_ms": device_ms(sdpa_bwd), "library_covers":
+            "SDPA's whole backward (all three kernels)"}
+    bh = bwd_b * h
+    bounds = _bwd_bounds(bh, S_TRAIN, d=d)
+    cc = _bwd_bounds(bh, S_TRAIN, False, d=d)
+    tag = f"{bwd_b}x{S_TRAIN}"
+    for name, kern, plain, e in (
+            (f"bwd_preprocess_{tag}",
+             lambda: flash_attention_bwd_preprocess(o, do),
+             lambda: flash_attention_bwd_preprocess_plain(o, do),
+             (delta - flash_attention_bwd_preprocess_plain(o, do)).abs()
+             .max().item()),
+            (f"bwd_dq_{tag}",
+             lambda: flash_attention_bwd_dq(q, k, v, *rest),
+             lambda: flash_attention_bwd_dq_plain(q, k, v, *rest),
+             err["dq"]),
+            (f"bwd_dkv_{tag}",
+             lambda: flash_attention_bwd_dkv(q, k, v, *rest),
+             lambda: flash_attention_bwd_dkv_plain(q, k, v, *rest),
+             max(err["dk"], err["dv"])),
+            (f"bwd_all_{tag}",
+             lambda: flash_attention_bwd(q, k, v, o, lse, do),
+             lambda: flash_attention_bwd_plain(q, k, v, o, lse, do),
+             max(err.values()))):
+        part = name.split("_")[1]
+        t_bound, by = bounds["preprocess" if part == "preprocess" else part]
+        timing[name] = {"max_abs_err": e, **times(kern, plain),
+                        "bound_ms": t_bound, "bound_by": by}
+        if part == "preprocess":
+            timing[name]["library_ms"] = device_ms(
+                lambda: torch.linalg.vecdot(o, do))
+        else:
+            timing[name].update(sdpa)
+            timing[name]["cuda_core_bound_ms"] = cc[part][0]
+    del q, k, v, q4, k4, v4, out4, do, do4, o, lse, delta
+    torch.cuda.empty_cache()
+    return timing
+
+
 def phase_flash_d128(prefills, train_shapes, cache_len: int,
                      main_lengths) -> tuple:
     """The flash kernels at deepseek-moe-16b's head dim 128 (16 heads):
@@ -4436,13 +4536,7 @@ def phase_flash_d128(prefills, train_shapes, cache_len: int,
     replay shapes.  Times the forward at 1 x 512 and 8 x 1024, the three
     backward kernels at 8 x 1024 and decode on the MoE engine's fused
     step, each beside its plain version, SDPA and its bound."""
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd, flash_attention_bwd_dkv,
-        flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
-        flash_attention_bwd_dq_plain, flash_attention_bwd_plain,
-        flash_attention_bwd_preprocess,
-        flash_attention_bwd_preprocess_plain, flash_attention_fwd,
-        flash_attention_fwd_plain)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     h, d = MOE_H, MOE_D
     errs = {}
     for i, (b, s) in enumerate(sorted(prefills | train_shapes)):
@@ -4476,68 +4570,7 @@ def phase_flash_d128(prefills, train_shapes, cache_len: int,
         decode[key] = check_decode(*_decode_inputs(
             b, cache_len, 1, torch.float32, ln, 80 + b, h, d), key)
 
-    timing = {}
-    for b, s in ((1, 512), (MOE_B, S_TRAIN)):
-        q, k, v = _attn_inputs(b, s, torch.float32, 5, h, d)
-        q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
-        bh = b * h
-        nbytes = 4 * bh * s * d * 4 + bh * s * 4
-        flops = 4 * d * _causal_pairs(bh, s)
-        t_bound, by = tc_bound(nbytes, flops)
-        timing[f"fwd_{b}x{s}"] = {
-            "max_abs_err": check_attention(q, k, v, f"d128 timed {b}x{s}")[0],
-            **times(lambda: flash_attention_fwd(q, k, v),
-                    lambda: flash_attention_fwd_plain(q, k, v),
-                    lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, is_causal=True)),
-            "bound_ms": t_bound, "bound_by": by,
-            "cuda_core_bound_ms": bound(nbytes, flops, torch.float32)[0]}
-    do = _attn_inputs(MOE_B, S_TRAIN, torch.float32, 6, h, d)[0]
-    o, lse = flash_attention_fwd(q, k, v)
-    delta = flash_attention_bwd_preprocess(o, do)
-    err = dict(zip(("dq", "dk", "dv"), check_attention_bwd(
-        q, k, v, o, lse, do, "d128 timed")))
-    q4, k4, v4 = (t.reshape(MOE_B, h, S_TRAIN, d).clone().requires_grad_()
-                  for t in (q, k, v))
-    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    do4 = do.reshape(MOE_B, h, S_TRAIN, d)
-    sdpa_bwd = lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
-                                           retain_graph=True)
-    rest = (do, lse, delta)
-    sdpa = {"library_ms": device_ms(sdpa_bwd), "library_covers":
-            "SDPA's whole backward (all three kernels)"}
-    bh = MOE_B * h
-    bounds = _bwd_bounds(bh, S_TRAIN, d=d)
-    cc = _bwd_bounds(bh, S_TRAIN, False, d=d)
-    for name, kern, plain, e in (
-            ("bwd_preprocess_8x1024",
-             lambda: flash_attention_bwd_preprocess(o, do),
-             lambda: flash_attention_bwd_preprocess_plain(o, do),
-             (delta - flash_attention_bwd_preprocess_plain(o, do)).abs()
-             .max().item()),
-            ("bwd_dq_8x1024",
-             lambda: flash_attention_bwd_dq(q, k, v, *rest),
-             lambda: flash_attention_bwd_dq_plain(q, k, v, *rest),
-             err["dq"]),
-            ("bwd_dkv_8x1024",
-             lambda: flash_attention_bwd_dkv(q, k, v, *rest),
-             lambda: flash_attention_bwd_dkv_plain(q, k, v, *rest),
-             max(err["dk"], err["dv"])),
-            ("bwd_all_8x1024",
-             lambda: flash_attention_bwd(q, k, v, o, lse, do),
-             lambda: flash_attention_bwd_plain(q, k, v, o, lse, do),
-             max(err.values()))):
-        part = name.split("_")[1]
-        t_bound, by = bounds["preprocess" if part == "preprocess" else part]
-        timing[name] = {"max_abs_err": e, **times(kern, plain),
-                        "bound_ms": t_bound, "bound_by": by}
-        if part == "preprocess":
-            timing[name]["library_ms"] = device_ms(
-                lambda: torch.linalg.vecdot(o, do))
-        else:
-            timing[name].update(sdpa)
-            timing[name]["cuda_core_bound_ms"] = cc[part][0]
-    del q, k, v, q4, k4, v4, out4, do, do4, o, lse, delta
+    timing = time_flash(h, d, ((1, 512), (MOE_B, S_TRAIN)), MOE_B, "d128")
     timing["decode_moe_main"] = time_decode(*_decode_inputs(
         8, cache_len, 1, torch.float32, main_lengths, 9, h, d),
         "float32_moe_main")
@@ -4836,6 +4869,309 @@ def phase_train_moe(dev: dict, fa_checked: set) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# the distributed slice: the flash kernels at qwen3-32b's head dim 80, then
+# the sharded train step, sequence-sharded flash decode, the compressed
+# all-reduce and the step's FLOP count on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+QWEN_H, QWEN_D = 64, 80  # qwen3-32b: 64 heads of 80 (its 8 KV heads reach
+#                          the kernels expanded to 64 by the Function)
+DIST_STEPS = 8
+# the sharded step against the unsharded one on the same card, every loss
+# and parameter leaf (within DIST_RTOL x the leaf's largest entry); fixed
+# before the first run: on a (1, 1) mesh both run the same kernels on the
+# same whole tensors, and only DTensor's own reductions (the clip's norm,
+# the variance statistics) may sum in another order
+DIST_RTOL = 1e-6
+DECODE_SHARDS = 4  # virtual sequence shards of the cache on the one card
+DECODE_POS = 300  # of 576 rows: shards 0-1 full, 2 holds 12 rows, 3 empty
+DECODE_ATOL = 1e-5  # the merged output against reference_decode
+EF_SYNCS = 20
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_flash_d80() -> dict:
+    """The flash kernels at qwen3-32b's head dim 80 (64 heads, fp32): the
+    forward at 1 x 512 and 2 x 1024 and the three backward kernels at 2 x
+    1024, each against its plain version and beside its plain version's
+    time, SDPA's and its bound.  No path of this script runs them."""
+    timing = time_flash(QWEN_H, QWEN_D, ((1, 512), (2, S_TRAIN)), 2, "d80")
+    emit("flash_d80", shape=f"H={QWEN_H} (kv 8, expanded) D={QWEN_D} fp32",
+         timing=timing)
+    return timing
+
+
+def _dist_steps(step, state, batches, plans) -> tuple:
+    """(state, losses, var_max, seconds) of ``step`` over the plans."""
+    losses, var_max = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch, p in zip(batches, plans):
+        state, m = step(state, batch, p.lr, p.grad_clip_scale)
+        losses.append(m["loss"])
+        var_max.append(m["var_max"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (state, [float(x) for x in losses], [float(x) for x in var_max],
+            seconds)
+
+
+def _dist_train(rules, tc, trainer) -> dict:
+    """DIST_STEPS SLW steps of the train phase's config from its initial
+    state and batches, through the unsharded step and the sharded one
+    (``fsdp`` rules): losses, var_max and every parameter leaf."""
+    from repro_torch.core.regulators import predict_trajectory
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import transforms as optim_tx
+    plans = predict_trajectory(tc, DIST_STEPS)
+    batches = [trainer.to_device(trainer.stack.apply(
+        trainer.pipeline.batch_at(i), plans[i])[0]) for i in range(len(plans))]
+    tokens = sum(p.batch_size * p.seq_len for p in plans)
+    init = trainer.state
+    model = trainer.model
+    plain, plain_loss, plain_var, plain_s = _dist_steps(
+        steps_lib.make_train_step(model, tc.optimizer), _clone_state(init),
+        batches, plans)
+    sharded = steps_lib.shard_train_state(_clone_state(init), rules,
+                                          tc.model, tc.optimizer)
+    kernels = _fa_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    sharded, loss, var, sharded_s = _dist_steps(
+        steps_lib.make_train_step(model, tc.optimizer, rules), sharded,
+        batches, plans)
+    launches = {name: f.launches for name, f in kernels.items()}
+    want = {name: tc.model.n_layers * DIST_STEPS for name in kernels}
+    check(launches == want, f"sharded step launches {launches} != {want}")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    loss_err = max(rel(a, b) for a, b in zip(loss, plain_loss))
+    var_err = max(rel(a, b) for a, b in zip(var, plain_var))
+    check(loss_err <= DIST_RTOL, f"sharded losses: {loss_err}")
+    leaves = optim_tx.tree_leaves(steps_lib.unshard_tree(sharded["params"]))
+    ref = optim_tx.tree_leaves(plain["params"])
+    leaf_err = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(leaves, ref))
+    check(leaf_err <= DIST_RTOL, f"sharded params: {leaf_err}")
+    bits = (loss == plain_loss and all(torch.equal(a, b)
+                                       for a, b in zip(leaves, ref)))
+    return {"steps": DIST_STEPS, "tokens": tokens,
+            "plans": [(p.batch_size, p.seq_len) for p in plans],
+            "max_rel_err": {"loss": loss_err, "var_max": var_err,
+                            "param_leaf": leaf_err},
+            "bits_equal": bits, "launches": launches,
+            "tokens_per_s": {"sharded": tokens / sharded_s,
+                             "unsharded": tokens / plain_s},
+            "seconds": {"sharded": sharded_s, "unsharded": plain_s},
+            # the warm-up steps are short (64 to 3,600 tokens): what the
+            # sharded step adds to each is DTensor's host dispatch
+            "host_overhead_ms_per_step": (sharded_s - plain_s)
+            / DIST_STEPS * 1e3,
+            "placements": str(tuple(optim_tx.tree_leaves(
+                sharded["params"])[0].placements))}
+
+
+def _dist_decode(mesh, main_lengths, cache_len: int) -> dict:
+    """flash_decode_sharded on the kernel backend at gpt2's main lengths
+    over the mesh's "data" axis, and DECODE_SHARDS virtual sequence shards
+    of the same cache on the one card, each shard's kernel partials merged
+    by ``merge_partials``: against ``reference_decode`` and, shard by
+    shard, the plain partials."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.compat import (Replicate, Shard,
+                                                distribute_tensor)
+    from repro_torch.kernels.flash_decode import flash_decode_fwd
+    q, kc, vc, lengths = _decode_inputs(8, cache_len, 1, torch.float32,
+                                        main_lengths, 90, H, D)
+    b = q.shape[0]
+    qs = q.reshape(b, 1, H, D)
+    kd, vd = (distribute_tensor(t, mesh, [Shard(1), Replicate()])
+              for t in (kc, vc))
+    fn = coll.flash_decode_sharded(mesh, "data", backend="kernel")
+    flash_decode_fwd.launches = 0
+    out = fn(qs, kd, vd, lengths)
+    launches = flash_decode_fwd.launches
+    check(launches == 1, f"flash_decode_sharded launches {launches}")
+    ref = coll.reference_decode(qs, kc, vc, lengths)
+    errs = {"sharded_main": (out - ref).abs().max().item()}
+    sl = cache_len // DECODE_SHARDS
+    filled = {}
+    for name, pos in (("virtual_main", lengths),
+                      ("virtual_300", DECODE_POS)):
+        parts, part_errs = [], []
+        for r in range(DECODE_SHARDS):
+            k_r, v_r = (t[:, r * sl:(r + 1) * sl].contiguous()
+                        for t in (kc, vc))
+            ln = coll.shard_lengths(pos, r * sl, sl, b, q.device)
+            got = coll.local_partials(q.reshape(b, H, D), k_r, v_r, ln, True)
+            part_errs.append(check_partials(
+                got, coll.local_partials(q.reshape(b, H, D), k_r, v_r, ln,
+                                         False), ln, f"{name} shard {r}"))
+            parts.append(got)
+            filled.setdefault(name, []).append(int(ln.sum()))
+        o, m, l = (torch.stack(x) for x in zip(*parts))
+        merged = coll.merge_partials(o, m, l, *coll.stacked_reductions())
+        ref = coll.reference_decode(qs, kc, vc, pos)
+        errs[name] = (merged.reshape(b, 1, H, D) - ref).abs().max().item()
+        errs[name + "_partials"] = max(max(e) for e in part_errs)
+    # DECODE_POS: two shards full, one partly filled, one empty
+    check(filled["virtual_300"] == [b * sl, b * sl, b * (DECODE_POS - 2 * sl),
+                                    0], f"shard fill {filled}")
+    check(all(v <= DECODE_ATOL for k, v in errs.items()
+              if not k.endswith("_partials")), f"sharded decode {errs}")
+    return {"max_abs_err": errs, "rows_per_shard": filled,
+            "launches": launches}
+
+
+def _dist_compressed(mesh, grads) -> dict:
+    """EF_SYNCS error-feedback syncs of one gradient tree over the mesh's
+    "data" axis (NCCL): the running mean against the gradient (relative l2
+    error, falling at syncs 1, 5 and EF_SYNCS), the error-feedback identity
+    ``mean_n = g - e_n / n``, and one sync's time; then the reference
+    test's own property, 40 syncs of a 4-vector within 0.05."""
+    from repro_torch.optim.compression import (compressed_allreduce,
+                                               init_error_state)
+    sync = compressed_allreduce(mesh, "data")
+    err = init_error_state(grads)
+    acc = [torch.zeros_like(g) for g in grads]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads])).item()
+    rel_l2, ms = {}, []
+    for n in range(1, EF_SYNCS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, err = sync(grads, err)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        torch._foreach_add_(acc, mean)
+        if n in (1, 5, EF_SYNCS):
+            diff = [a / n - g for a, g in zip(acc, grads)]
+            rel_l2[n] = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(x) for x in diff])).item() / norm
+    leaf_scale = [g.abs().max().clamp_min(1e-30) for g in grads]
+    ident = max(((a / EF_SYNCS - g + e / EF_SYNCS).abs().max() / s).item()
+                for a, g, e, s in zip(acc, grads, err, leaf_scale))
+    check(ident <= 1e-5, f"error-feedback identity {ident}")
+    check(rel_l2[EF_SYNCS] < rel_l2[5] < rel_l2[1],
+          f"the running mean does not converge: {rel_l2}")
+    g4 = [torch.tensor([0.5, -0.02, 0.3, -0.7], device="cuda")]
+    err4, acc4 = init_error_state(g4), torch.zeros(4, device="cuda")
+    for _ in range(40):
+        mean4, err4 = sync(g4, err4)
+        acc4 += mean4[0]
+    dev4 = (acc4 / 40 - g4[0]).abs().max().item()
+    check(dev4 <= 0.05, f"the 4-vector's running mean: {dev4}")
+    return {"syncs": EF_SYNCS, "leaves": len(grads),
+            "rel_l2_err": rel_l2, "identity_err": ident,
+            "sync_ms_p50": float(np.median(ms[1:])), "first_sync_ms": ms[0],
+            "vector_40_max_err": dev4}
+
+
+def _timed_steps(step, state, batch, n: int = 3) -> float:
+    """ms a step of ``step`` on ``batch``, the mean of ``n`` after one
+    untimed step."""
+    state, _ = step(state, batch, 1e-5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = step(state, batch, 1e-5)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _dist_flops(tc, trainer, rules) -> dict:
+    """The analytic model FLOPs of one B_TRAIN x S_TRAIN training step
+    against ``roofline.op_cost``'s count of the same unsharded step (its
+    aten ops plus the flash kernels' reported work), and that step's share
+    of the fp32 peak (TF32 off) at its measured time; the same step
+    through the sharded train step (``rules``), timed beside it."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model_zoo
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.roofline.op_cost import analyze_fn
+    batch = trainer.to_device(trainer.pipeline.batch_at(0))
+    check(tuple(batch["tokens"].shape) == (B_TRAIN, S_TRAIN),
+          f"full-length batch {tuple(batch['tokens'].shape)}")
+    step = steps_lib.make_train_step(trainer.model, tc.optimizer)
+    state = _clone_state(trainer.state)
+    cost, _ = analyze_fn(step, state, batch, 1e-5)
+    ms = _timed_steps(step, state, batch)
+    del state
+    sharded_ms = _timed_steps(
+        steps_lib.make_train_step(trainer.model, tc.optimizer, rules),
+        steps_lib.shard_train_state(_clone_state(trainer.state), rules,
+                                    tc.model, tc.optimizer), batch)
+    want = model_flops(tc.model, "train", B_TRAIN, S_TRAIN,
+                       model_zoo.active_param_count(tc.model))
+    return {"shape": f"{B_TRAIN}x{S_TRAIN}", "model_flops": want,
+            "op_cost_flops": cost.flops, "ratio": cost.flops / want,
+            "op_cost_bytes": cost.bytes, "flops_by_op": cost.top(6),
+            "step_ms": ms, "sharded_step_ms": sharded_ms,
+            "sharded_over_unsharded": sharded_ms / ms,
+            "fp32_peak_share": cost.flops / (ms * 1e-3 * hw.PEAK_FLOPS_FP32),
+            "model_fp32_peak_share": want / (ms * 1e-3
+                                             * hw.PEAK_FLOPS_FP32)}
+
+
+def phase_distributed(dev: dict, train_tokens_s: float, main_lengths,
+                      cache_len: int) -> dict:
+    """The distributed slice at full gpt2-117m width on a one-rank NCCL
+    group and a (1, 1) ("data", "model") mesh: DIST_STEPS SLW steps of
+    the sharded train step (``fsdp`` rules) against the unsharded step
+    from the train phase's initial state and batches; flash_decode_sharded
+    and DECODE_SHARDS virtual shards' kernel partials merged; EF_SYNCS
+    compressed all-reduces of a gpt2 gradient tree; the model FLOPs of a
+    16 x 1024 step against its op count, and that step's time sharded and
+    unsharded.  Fails without NCCL."""
+    import torch.distributed as dist
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim import transforms as optim_tx
+    check(dist.is_available() and dist.is_nccl_available(),
+          "torch.distributed has no NCCL")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"backend {backend}")
+        mesh = make_host_mesh((1, 1), ("data", "model"), "cuda")
+        rules = ShardingRules.make(mesh, "fsdp")
+        tc = train_config()
+        trainer = Trainer(tc, eval_batch=EVAL_BATCH, device="cuda")
+        train = _dist_train(rules, tc, trainer)
+        decode = _dist_decode(mesh, main_lengths, cache_len)
+        batch = trainer.to_device(trainer.pipeline.batch_at(0))
+        leaves = optim_tx.tree_leaves(trainer.state["params"])
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = trainer.model.loss(trainer.state["params"], batch)
+        grads = steps_lib.loss_grads(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        del loss
+        compressed = _dist_compressed(mesh, grads)
+        del grads
+        flops = _dist_flops(tc, trainer, rules)
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("distributed", card=dev["nvidia_smi"], backend=backend, mesh="1x1",
+         rules="fsdp", train=train, train_phase_tokens_per_s=train_tokens_s,
+         decode=decode, compressed=compressed, flops=flops)
+    return {"launches": {**train["launches"],
+                         "flash_decode_fwd": decode["launches"]}}
+
+
 def main() -> int:
     dev = phase_device()
     build = phase_build()
@@ -4888,10 +5224,13 @@ def main() -> int:
     recovery_launches = phase_recovery(dev, bwd_checked, clean)
     del clean
     torch.cuda.empty_cache()
+    dist_launches = phase_distributed(dev, train_tokens_s, main_lengths,
+                                      PROMPT_LEN + GEN)["launches"]
     # every trainer of the four phases is gone, its state off the card
     left = torch.cuda.memory_allocated() - held
-    check(left < 2**26, f"phases paper, checkpoint, telemetry_gns and "
-          f"recovery left {left} bytes allocated on the card")
+    check(left < 2**26, f"phases paper, checkpoint, telemetry_gns, "
+          f"recovery and distributed left {left} bytes allocated on the "
+          f"card")
     bf16_launches = phase_grads_bf16()
     torch.cuda.empty_cache()
 
@@ -4934,6 +5273,7 @@ def main() -> int:
     _, (d128_fa, d128_fd) = phase_flash_d128(
         moe_prefills, moe_train_shapes | {(MOE_EVAL, S_TRAIN)},
         PROMPT_LEN + GEN, main_lengths)
+    phase_flash_d80()
     moe_serve = phase_engine_moe(dev, d128_fa, d128_fd)
     torch.cuda.empty_cache()
     moe_train = phase_train_moe(dev, d128_fa)
@@ -4944,7 +5284,7 @@ def main() -> int:
                "router": router_launches, "train": train_launches,
                "paper": paper_launches, "checkpoint": ckpt_launches,
                "telemetry_gns": tg_launches, "recovery": recovery_launches,
-               "grads_bf16": bf16_launches,
+               "grads_bf16": bf16_launches, "distributed": dist_launches,
                **rwkv_serve, "train_rwkv": rwkv_train, **zamba_serve,
                "train_zamba": zamba_train, **moe_serve,
                "train_moe": moe_train}

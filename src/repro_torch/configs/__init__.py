@@ -14,32 +14,45 @@ from repro_torch.configs import (deepseek_moe_16b, gpt2,
                                  musicgen_large, phi3_mini_3p8b, qwen2_1p5b,
                                  qwen3_32b, rwkv6_7b, smollm_360m,
                                  zamba2_2p7b)
-from repro_torch.configs.base import (BatchWarmupConfig, GNSConfig,
+from repro_torch.configs.base import (LM_SHAPES, ArchSpec,
+                                     BatchWarmupConfig, GNSConfig,
                                      ModelConfig, OptimizerConfig,
-                                     RegulatorSpec, SLWConfig, TrainConfig)
+                                     RegulatorSpec, ShapeConfig, SLWConfig,
+                                     TrainConfig)
 
-ARCHS: Dict[str, ModelConfig] = {
-    "zamba2-2.7b": zamba2_2p7b.ZAMBA2_2P7B,
-    "smollm-360m": smollm_360m.SMOLLM_360M,
-    "phi3-mini-3.8b": phi3_mini_3p8b.PHI3_MINI_3P8B,
-    "qwen3-32b": qwen3_32b.QWEN3_32B,
-    "qwen2-1.5b": qwen2_1p5b.QWEN2_1P5B,
-    "rwkv6-7b": rwkv6_7b.RWKV6_7B,
-    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.MOONSHOT_V1_16B_A3B,
-    "deepseek-moe-16b": deepseek_moe_16b.DEEPSEEK_MOE_16B,
-    "musicgen-large": musicgen_large.MUSICGEN_LARGE,
-    "llava-next-mistral-7b": llava_next_mistral_7b.LLAVA_NEXT_MISTRAL_7B,
-    "gpt2-117m": gpt2.GPT2_117M,
-    "gpt3-125m": gpt2.GPT3_125M,
+# the ten assigned architectures (the dry run's targets)
+ASSIGNED: Dict[str, ArchSpec] = {
+    "zamba2-2.7b": zamba2_2p7b.SPEC,
+    "smollm-360m": smollm_360m.SPEC,
+    "phi3-mini-3.8b": phi3_mini_3p8b.SPEC,
+    "qwen3-32b": qwen3_32b.SPEC,
+    "qwen2-1.5b": qwen2_1p5b.SPEC,
+    "rwkv6-7b": rwkv6_7b.SPEC,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.SPEC,
+    "deepseek-moe-16b": deepseek_moe_16b.SPEC,
+    "musicgen-large": musicgen_large.SPEC,
+    "llava-next-mistral-7b": llava_next_mistral_7b.SPEC,
 }
+# the paper's own models
+PAPER: Dict[str, ArchSpec] = {
+    "gpt2-117m": gpt2.SPEC_GPT2_117M,
+    "gpt3-125m": gpt2.SPEC_GPT3_125M,
+}
+SPECS: Dict[str, ArchSpec] = {**ASSIGNED, **PAPER}
+ARCHS: Dict[str, ModelConfig] = {k: s.model for k, s in SPECS.items()}
 FAMILIES = ("dense", "moe", "rwkv", "hybrid")
 
 
-def get_arch(name: str) -> ModelConfig:
-    if name not in ARCHS:
+def get_arch_spec(name: str) -> ArchSpec:
+    """The preset's model with its shape cells, source and notes."""
+    if name not in SPECS:
         raise KeyError(f"unknown arch {name!r}; the port runs "
-                       f"{sorted(ARCHS)}")
-    return ARCHS[name]
+                       f"{sorted(SPECS)}")
+    return SPECS[name]
+
+
+def get_arch(name: str) -> ModelConfig:
+    return get_arch_spec(name).model
 
 
 def reduced(model: ModelConfig) -> ModelConfig:
@@ -68,6 +81,7 @@ def reduced(model: ModelConfig) -> ModelConfig:
     return model.replace(**kw)
 
 
-__all__ = ["ARCHS", "BatchWarmupConfig", "GNSConfig", "ModelConfig",
-           "OptimizerConfig", "RegulatorSpec", "SLWConfig", "TrainConfig",
-           "get_arch", "reduced"]
+__all__ = ["ARCHS", "ASSIGNED", "ArchSpec", "BatchWarmupConfig", "GNSConfig",
+           "LM_SHAPES", "ModelConfig", "OptimizerConfig", "PAPER",
+           "RegulatorSpec", "SLWConfig", "SPECS", "ShapeConfig",
+           "TrainConfig", "get_arch", "get_arch_spec", "reduced"]

@@ -4,9 +4,12 @@ Answers to ``repro/configs/base.py``: ``ModelConfig`` (lines 15-113), and
 ``SLWConfig``, ``BatchWarmupConfig``, ``RegulatorSpec``,
 ``OptimizerConfig`` and ``TrainConfig`` (lines 133-331).  The fields are
 copied, not imported, so this package never imports ``repro``.
-``GNSConfig`` is lines 209-253.  ``ModelConfig`` has every field of the
-reference's; ``TrainConfig`` leaves out the fields only sharding reads,
-which come with that slice.
+``GNSConfig`` is lines 209-253; ``ShapeConfig``, ``LM_SHAPES`` and
+``ArchSpec`` (the dry run's cells) are lines 113-129 and 334-356.
+``ModelConfig`` and ``OptimizerConfig`` have every field of the
+reference's; ``TrainConfig`` leaves out ``sharding_rules`` and
+``cast_params_before_use`` (the sharded step takes its rules as an
+argument, and the port runs fp32).
 """
 from __future__ import annotations
 
@@ -84,8 +87,32 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether the arch decodes at 500K context (SSM, hybrid, linear)."""
+        return self.family in ("rwkv", "hybrid")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the dry run; ``kind`` selects the step."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+# the assigned LM shape set, the same for the ten architectures
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
 
 
 @dataclass(frozen=True)
@@ -172,8 +199,7 @@ class GNSConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    """``base.py:256``; the reference's ``grad_compression`` fields, which
-    only the distributed layer reads, are left out."""
+    """``base.py:256``."""
 
     lr: float = 6e-4
     min_lr: float = 1e-5
@@ -202,6 +228,12 @@ class OptimizerConfig:
     warmup_tokens: int = 0
     total_steps: int = 0
     total_tokens: int = 0
+    # 1-bit-Adam style compressed gradient all-reduce: the reference's
+    # fields, which no train step of either package reads; the port's
+    # ``make_train_step`` refuses ``grad_compression=True`` rather than
+    # run the exact sync under it (``optim.compression`` has the sync)
+    grad_compression: bool = False
+    compression_warmup_steps: int = 0
 
 
 @dataclass(frozen=True)
@@ -224,3 +256,26 @@ class TrainConfig:
     checkpoint_interval: int = 500
     checkpoint_dir: str = ""
     keep_checkpoints: int = 3
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    """An architecture with its shape cells and dry-run notes
+    (``base.py:334-356``)."""
+
+    model: ModelConfig
+    shapes: Tuple[ShapeConfig, ...] = LM_SHAPES
+    source: str = ""
+    notes: str = ""
+
+    def shape(self, name: str) -> ShapeConfig:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.model.name} has no shape {name!r}")
+
+    def runnable_shapes(self) -> Tuple[ShapeConfig, ...]:
+        """The cells a dry run lowers: long_500k only for sub-quadratic
+        archs."""
+        return tuple(s for s in self.shapes
+                     if s.name != "long_500k" or self.model.sub_quadratic)

@@ -1,7 +1,7 @@
 """The paper's own models (``repro/configs/gpt2.py:9-34``): GPT-2 117M and
 the GPT-3 125M replica, with learned positions, LayerNorm, tanh-GELU MLPs
 and tied embeddings."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig, ShapeConfig
 
 GPT2_117M = ModelConfig(
     name="gpt2-117m",
@@ -22,3 +22,16 @@ GPT2_117M = ModelConfig(
 )
 
 GPT3_125M = GPT2_117M.replace(name="gpt3-125m", max_seq_len=2048)
+
+# the paper's training shapes (``gpt2.py:39-50``): seqlen 1K for GPT-2,
+# 2K for the GPT-3-style runs
+PAPER_SHAPES = (
+    ShapeConfig("train_1k_b512", "train", 1024, 512),
+    ShapeConfig("train_1k_b4k", "train", 1024, 4096),
+    ShapeConfig("train_2k_b512", "train", 2048, 512),
+)
+
+SPEC_GPT2_117M = ArchSpec(model=GPT2_117M, shapes=PAPER_SHAPES,
+                          source="paper §3 (Radford et al. 2019)")
+SPEC_GPT3_125M = ArchSpec(model=GPT3_125M, shapes=PAPER_SHAPES,
+                          source="paper §5.2 (Brown et al. 2020)")

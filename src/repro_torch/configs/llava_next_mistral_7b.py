@@ -4,7 +4,7 @@ hf:llava-hf/llava-v1.6-mistral-7b-hf): 32 layers, d_model 4096, 32 heads
 of 128 (kv 8), d_ff 14336, vocab 32000.  The vision tower is a stub:
 batches carry precomputed patch embeddings (B, 576, d_model), prepended to
 the text embeddings; SLW warms up only the text."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig
 
 LLAVA_NEXT_MISTRAL_7B = ModelConfig(
     name="llava-next-mistral-7b",
@@ -18,3 +18,7 @@ LLAVA_NEXT_MISTRAL_7B = ModelConfig(
     frontend="vision_patches",
     prefix_tokens=576,  # one 24 x 24 anyres base tile
 )
+
+SPEC = ArchSpec(model=LLAVA_NEXT_MISTRAL_7B, source="hf:llava-hf/llava-v1.6-mistral-7b-hf (unverified tier)",
+               notes=("vision frontend stubbed (precomputed patch embeddings); "
+           "long_500k skipped: full attention"))

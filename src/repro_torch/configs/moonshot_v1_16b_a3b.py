@@ -2,7 +2,7 @@
 (``repro/configs/moonshot_v1_16b_a3b.py``; hf:moonshotai/Moonlight-16B-A3B):
 48 layers, d_model 2048, 16 heads (kv 16), 2 shared + 64 routed experts of
 d_ff 1408, top-6, vocab 163840."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig
 
 MOONSHOT_V1_16B_A3B = ModelConfig(
     name="moonshot-v1-16b-a3b",
@@ -17,3 +17,6 @@ MOONSHOT_V1_16B_A3B = ModelConfig(
     n_shared_experts=2,
     top_k=6,
 )
+
+SPEC = ArchSpec(model=MOONSHOT_V1_16B_A3B, source="hf:moonshotai/Moonlight-16B-A3B",
+               notes="EP: experts sharded over the model axis; long_500k skipped: full attention")

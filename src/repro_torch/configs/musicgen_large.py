@@ -3,7 +3,7 @@
 d_model 2048, 32 heads (kv 32), d_ff 8192, vocab 2048, learned positions,
 LayerNorm, GELU.  The EnCodec frontend is a stub: batches carry
 precomputed frame embeddings (B, S, d_model)."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig
 
 MUSICGEN_LARGE = ModelConfig(
     name="musicgen-large",
@@ -20,3 +20,7 @@ MUSICGEN_LARGE = ModelConfig(
     mlp="gelu",
     max_seq_len=32768,
 )
+
+SPEC = ArchSpec(model=MUSICGEN_LARGE, source="arXiv:2306.05284",
+               notes=("audio backbone; frontend stubbed (precomputed frame embeddings); "
+           "long_500k skipped: full attention"))

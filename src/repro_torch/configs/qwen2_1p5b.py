@@ -2,7 +2,7 @@
 arXiv:2407.10671): 28 layers, d_model 1536, 12 heads of 128 (kv 2), d_ff
 8960, vocab 151936, tied embeddings; flash attention and the decode
 kernel."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig
 
 QWEN2_1P5B = ModelConfig(
     name="qwen2-1.5b",
@@ -18,3 +18,6 @@ QWEN2_1P5B = ModelConfig(
     attn_backend="flash",
     decode_backend="kernel",
 )
+
+SPEC = ArchSpec(model=QWEN2_1P5B, source="arXiv:2407.10671",
+               notes="long_500k skipped: pure full attention (quadratic)")

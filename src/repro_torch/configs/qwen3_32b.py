@@ -2,7 +2,7 @@
 hf:Qwen/Qwen3 family): 64 layers, d_model 5120, 64 heads of 80 (kv 8),
 d_ff 25600, vocab 151936; flash attention and the decode kernel, both at
 head dim 80."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig
 
 QWEN3_32B = ModelConfig(
     name="qwen3-32b",
@@ -17,3 +17,6 @@ QWEN3_32B = ModelConfig(
     attn_backend="flash",
     decode_backend="kernel",
 )
+
+SPEC = ArchSpec(model=QWEN3_32B, source="hf:Qwen/Qwen3 family",
+               notes="largest dense cell; long_500k skipped: pure full attention")

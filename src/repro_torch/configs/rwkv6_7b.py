@@ -1,7 +1,7 @@
 """rwkv6-7b (Finch), attention-free with data-dependent decay
 (``repro/configs/rwkv6_7b.py``; arXiv:2404.05892): 32 layers, d_model
 4096, 64 heads of 64, d_ff 14336, vocab 65536."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig
 
 RWKV6_7B = ModelConfig(
     name="rwkv6-7b",
@@ -16,3 +16,7 @@ RWKV6_7B = ModelConfig(
     norm="layernorm",
     rwkv_backend="kernel",
 )
+
+SPEC = ArchSpec(model=RWKV6_7B, source="arXiv:2404.05892",
+               notes=("attention-free: decode state is O(1) per layer; long_500k runs "
+           "(the 500K 'cache' is a constant-size WKV state + token-shift buffers)"))

@@ -2,7 +2,7 @@
 (``repro/configs/smollm_360m.py``; hf:HuggingFaceTB/SmolLM-360M): 32
 layers, d_model 960, 15 heads of 64 (kv 5), d_ff 2560, vocab 49152, tied
 embeddings; flash attention and the decode kernel."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig
 
 SMOLLM_360M = ModelConfig(
     name="smollm-360m",
@@ -17,3 +17,6 @@ SMOLLM_360M = ModelConfig(
     attn_backend="flash",
     decode_backend="kernel",
 )
+
+SPEC = ArchSpec(model=SMOLLM_360M, source="hf:HuggingFaceTB/SmolLM-360M",
+               notes="long_500k skipped: pure full attention (quadratic)")

@@ -3,7 +3,7 @@ MLP block (``repro/configs/zamba2_2p7b.py``; arXiv:2411.15242): 54 Mamba-2
 layers, d_model 2560, SSD state 64, heads of 64; the shared block (32
 heads of 80, d_ff 10240) after every 6 layers, 9 applications, each with
 its own KV cache; vocab 32000."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchSpec, ModelConfig
 
 ZAMBA2_2P7B = ModelConfig(
     name="zamba2-2.7b",
@@ -21,3 +21,7 @@ ZAMBA2_2P7B = ModelConfig(
     ssm_backend="kernel",
     decode_backend="kernel",
 )
+
+SPEC = ArchSpec(model=ZAMBA2_2P7B, source="arXiv:2411.15242 (hf-verified)",
+               notes=("hybrid: long_500k runs (sub-quadratic backbone; shared-attn KV caches "
+           "are sequence-sharded over the data axis)"))

@@ -52,12 +52,29 @@ def wants_kernel(backend: str, field: str, allowed) -> bool:
 
 
 def on_card(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU tensor; raises otherwise."""
+    """True for a CUDA tensor, False for a CPU tensor; raises otherwise,
+    and for a DTensor: a sharded step hands a kernel its local tensors
+    (``distributed.sharding.local_call``)."""
+    from repro_torch.distributed.compat import is_dtensor
+    if is_dtensor(x):
+        raise TypeError("a kernel wrapper got a DTensor; call it through "
+                        "distributed.sharding.local_call")
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {x.device}")
+
+
+# cost sinks: ``roofline.op_cost`` counts the aten ops a step dispatches;
+# a CUDA kernel launched through ctypes is no aten op, so its wrapper
+# reports its own FLOPs and bytes here
+COST_SINKS: list = []
+
+
+def note_cost(name: str, flops: float, nbytes: float) -> None:
+    for sink in COST_SINKS:
+        sink(name, flops, nbytes)
 
 
 def check_f32(name: str, t: torch.Tensor, shape, device) -> None:

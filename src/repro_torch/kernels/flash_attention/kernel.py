@@ -18,12 +18,22 @@ import math
 
 import torch
 
-from repro_torch.kernels import on_card
+from repro_torch.kernels import note_cost, on_card
 from repro_torch.kernels._build import check, library
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _pairs(s: int, causal: bool) -> int:
+    """(query, key) pairs one head computes: the lower triangle if
+    causal."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def _bytes(*ts: torch.Tensor) -> float:
+    return float(sum(t.numel() * t.element_size() for t in ts))
 
 
 def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
@@ -103,6 +113,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    lse.data_ptr(), bh, s, d, int(causal), valid_len,
                    DTYPE_CODES[q.dtype], _stream(q)), "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    note_cost("flash_attention_fwd", 4.0 * bh * _pairs(s, causal) * d,
+              _bytes(q, k, v, o, lse))
     return o, lse
 
 
@@ -193,6 +205,8 @@ def flash_attention_bwd_preprocess(o: torch.Tensor,
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), bh, s, d,
         DTYPE_CODES[o.dtype], _stream(o)), "flash_attention_bwd_preprocess")
     flash_attention_bwd_preprocess.launches += 1
+    note_cost("flash_attention_bwd_preprocess", 2.0 * bh * s * d,
+              _bytes(o, do, delta))
     return delta
 
 
@@ -213,6 +227,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
         int(causal), valid_len, DTYPE_CODES[q.dtype], _stream(q)),
         "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    note_cost("flash_attention_bwd_dq", 6.0 * bh * _pairs(s, causal) * d,
+              _bytes(q, k, v, do, lse, delta, dq))
     return dq
 
 
@@ -235,6 +251,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
         d, int(causal), valid_len, DTYPE_CODES[q.dtype], _stream(q)),
         "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    note_cost("flash_attention_bwd_dkv", 8.0 * bh * _pairs(s, causal) * d,
+              _bytes(q, k, v, do, lse, delta, dk, dv))
     return dk, dv
 
 

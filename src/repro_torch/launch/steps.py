@@ -1,5 +1,6 @@
-"""The train step and the train state (``repro/launch/steps.py:25-153,
-219-226``).
+"""Step builders and their sharding contract (``repro/launch/steps.py``):
+the train, prefill and serve steps, the train state, and the shardings of
+the state, the batch and the cache under logical-axis rules.
 
 ``make_train_step`` computes the loss and its gradient, runs the optimizer
 chain with ``hyper = {"lr", "clip_scale"}`` and returns the new state and
@@ -25,6 +26,16 @@ at the end (the shard weights are token shares, known only after each
 forward), so one accumulator and one shard's gradients are alive at a
 time.  The full-batch gradient equals the reference's ``tensordot(w, g)``
 up to fp32 summation order.
+
+With ``rules`` (``distributed.sharding.ShardingRules`` on a
+``DeviceMesh``) the step runs on DTensors: the state is placed by
+:func:`train_state_shardings` (:func:`shard_train_state`), the batch by
+:func:`batch_shardings`, and DTensor's sharding propagation stands in for
+GSPMD.  Each gradient leaves autograd partial over the batch axes and is
+redistributed to its parameter's placements (the FSDP reduce-scatter, or
+the DP all-reduce of a replicated leaf) before the chain, so the clip's
+global norm and the Adam-variance statistics reduce over every shard.
+The step's metrics come back as plain tensors, whole on every rank.
 """
 from __future__ import annotations
 
@@ -35,6 +46,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import GNSConfig, ModelConfig, OptimizerConfig
 from repro_torch.core.telemetry import LeafGroups, leaf_groups, leaf_sq_norms
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.compat import (distribute_tensor, is_dtensor)
 from repro_torch.models import model_zoo
 from repro_torch.optim import transforms as optim_tx
 
@@ -93,8 +106,22 @@ def loss_grads(loss: torch.Tensor,
     does not reach (an audio model's token table), as ``jax.grad``
     gives."""
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
+    return [torch.zeros_like(p) if g is None else _synced(g, p)
             for g, p in zip(grads, leaves)]
+
+
+def _synced(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient on its parameter's placements: partial sums over
+    the batch axes reduced (reduce-scatter where the parameter is sharded,
+    all-reduce where it is replicated)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _plain(x: Any) -> Any:
+    """A DTensor metric as the whole plain tensor on every rank."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def _vector(x: Any, device: torch.device) -> torch.Tensor:
@@ -110,13 +137,16 @@ def _scale_grads(grads: List[torch.Tensor], grad_scale: Optional[Any],
 
 def sharded_grads(model, params, batch: Dict[str, torch.Tensor], k: int,
                   grad_scale: Optional[Any] = None,
-                  groups: Optional[LeafGroups] = None):
+                  groups: Optional[LeafGroups] = None,
+                  axes: Optional[Any] = None):
     """``(grads, metrics, leaf_small)`` of ``k`` emulated shards of
     ``batch`` (contiguous row groups): the full-batch gradient (a list in
     ``tree_leaves`` order) and metrics as the token-weighted shard means
     (``tokens`` summed), and the per-group mean over the shards of ``sum
     g^2`` (``steps.py:92-124``).  ``grad_scale`` multiplies each shard's
-    gradient groups first, so the measurement sees what the chain sees."""
+    gradient groups first, so the measurement sees what the chain sees.
+    ``axes`` (the params' logical axes) gathers sharded params for compute
+    under the active rules."""
     leaves = optim_tx.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -126,7 +156,7 @@ def sharded_grads(model, params, batch: Dict[str, torch.Tensor], k: int,
     sums: Dict[str, torch.Tensor] = {}
     for i in range(k):
         shard = {key: v[i * rows:(i + 1) * rows] for key, v in batch.items()}
-        loss, metrics = model.loss(params, shard)
+        loss, metrics = model.loss(shd.gather_params(params, axes), shard)
         grads = loss_grads(loss, leaves)
         with torch.no_grad():
             _scale_grads(grads, grad_scale, groups)
@@ -154,15 +184,26 @@ def sharded_grads(model, params, batch: Dict[str, torch.Tensor], k: int,
 
 
 def make_train_step(model, opt_cfg: OptimizerConfig,
+                    rules: Optional[shd.ShardingRules] = None,
+                    optimizer: Optional[optim_tx.GradientTransform] = None,
                     gns: Optional[GNSConfig] = None,
                     sketch_signs: Optional[Callable] = None):
     """``train_step(state, batch, lr, clip_scale=1.0, grad_scale=None,
     leaf_lr=None) -> (state, metrics)``; ``batch`` holds tensors on the
     params' device.  The metrics are tensors on that device (0-dim, or the
     per-leaf vectors), ``lr`` and the GNS batch sizes floats.
-    ``sketch_signs(i, n, device)`` gives group ``i``'s ``n`` signs
-    (default :class:`SketchSigns` of ``gns.sketch_seed``)."""
-    tx = optim_tx.build_optimizer(opt_cfg)
+    ``optimizer`` replaces the chain ``opt_cfg`` builds; ``rules`` shard
+    the step (see the module's docstring: the state and batch are then
+    DTensors placed by those rules).  ``sketch_signs(i, n, device)`` gives
+    group ``i``'s ``n`` signs (default :class:`SketchSigns` of
+    ``gns.sketch_seed``)."""
+    if opt_cfg.grad_compression:
+        raise NotImplementedError(
+            "grad_compression: no train step syncs its gradients through "
+            "optim.compression.compressed_allreduce yet")
+    tx = optimizer if optimizer is not None else \
+        optim_tx.build_optimizer(opt_cfg)
+    axes = model_zoo.param_axes(model.cfg) if rules is not None else None
     gns_cfg = gns if (gns is not None and gns.enabled) else None
     if gns_cfg is not None and gns_cfg.precursor_window > 0:
         sketch_dim = max(gns_cfg.precursor_dim, 1)
@@ -170,6 +211,14 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
 
     def train_step(state, batch, lr, clip_scale=1.0, grad_scale=None,
                    leaf_lr=None):
+        with shd.use_rules(rules):
+            new_state, out = _step(state, batch, lr, clip_scale, grad_scale,
+                                   leaf_lr)
+        if rules is not None:
+            out = {k: _plain(v) for k, v in out.items()}
+        return new_state, out
+
+    def _step(state, batch, lr, clip_scale, grad_scale, leaf_lr):
         params = state["params"]
         leaves = optim_tx.tree_leaves(params)
         for p in leaves:
@@ -181,7 +230,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
                   if k >= 2 or grad_scale is not None else None)
         if k >= 2:
             grads, metrics, leaf_small = sharded_grads(
-                model, params, batch, k, grad_scale, groups)
+                model, params, batch, k, grad_scale, groups, axes)
             with torch.no_grad():
                 leaf_big = leaf_sq_norms(grads, groups)
                 gns_tel = {"gns_small_sq": leaf_small.sum(),
@@ -201,7 +250,8 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
                             sketch_dim))
                     gns_tel["leaf_gns_sketch"] = torch.stack(sketches)
         else:
-            loss, metrics = model.loss(params, batch)
+            loss, metrics = model.loss(shd.gather_params(params, axes),
+                                       batch)
             grads = loss_grads(loss, leaves)
             with torch.no_grad():
                 _scale_grads(grads, grad_scale, groups)
@@ -231,3 +281,134 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig,
     tx = optim_tx.build_optimizer(opt_cfg or OptimizerConfig())
     return {"params": params, "opt": tx.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def make_prefill_step(model, rules: Optional[shd.ShardingRules] = None):
+    """``prefill_step(params, batch) -> (logits, cache)`` under ``rules``
+    (``steps.py:156-160``)."""
+    axes = model_zoo.param_axes(model.cfg) if rules is not None else None
+
+    def prefill_step(params, batch):
+        with shd.use_rules(rules):
+            return model.prefill(shd.gather_params(params, axes), batch)
+    return prefill_step
+
+
+def make_serve_step(model, rules: Optional[shd.ShardingRules] = None):
+    """``serve_step(params, cache, tokens) -> (logits, cache)``, one decode
+    step under ``rules`` (``steps.py:163-167``)."""
+    axes = model_zoo.param_axes(model.cfg) if rules is not None else None
+
+    def serve_step(params, cache, tokens):
+        with shd.use_rules(rules):
+            return model.decode(shd.gather_params(params, axes), cache,
+                                tokens)
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# abstract state and sharding trees (``steps.py:174-259``)
+# ---------------------------------------------------------------------------
+
+def abstract_train_state(cfg: ModelConfig,
+                         opt_cfg: Optional[OptimizerConfig] = None
+                         ) -> Dict[str, Any]:
+    """The train state as ``meta`` tensors: no storage.  ``opt_cfg``
+    selects the chain whose state rides under ``"opt"`` (default AdamW)."""
+    params = model_zoo.abstract_params(cfg)
+    tx = optim_tx.build_optimizer(opt_cfg or OptimizerConfig())
+    return {"params": params,
+            "opt": optim_tx.abstract_chain_state(tx, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def train_state_shardings(rules: shd.ShardingRules, cfg: ModelConfig,
+                          opt_cfg: Optional[OptimizerConfig] = None
+                          ) -> Dict[str, Any]:
+    """:class:`~repro_torch.distributed.sharding.NamedSharding` tree of the
+    train state: params by the param rules, the optimizer state by
+    :func:`_opt_state_shardings`, the step replicated."""
+    shapes = model_zoo.abstract_params(cfg)
+    p_sh = shd.tree_param_shardings(rules, model_zoo.param_axes(cfg), shapes)
+    replicated = shd.NamedSharding(rules.mesh, ())
+    return {"params": p_sh,
+            "opt": _opt_state_shardings(cfg, opt_cfg, shapes, p_sh,
+                                        replicated),
+            "step": replicated}
+
+
+def _paths(tree: Any, prefix: tuple = ()):
+    """(path, leaf) pairs of a tree of dicts and lists, keys as strings."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)) and \
+            not isinstance(tree, shd.NamedSharding):
+        for i, t in enumerate(tree):
+            yield from _paths(t, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def _opt_state_shardings(cfg: ModelConfig,
+                         opt_cfg: Optional[OptimizerConfig],
+                         params_abs, p_sh, replicated):
+    """Shardings of the chain state (``steps.py:210-246``): an ``m`` or
+    ``v`` subtree that mirrors the params (Adam's and SM3's moments) takes
+    the params' shardings leaf for leaf, looked up by the path after the
+    marker; everything else (counts, SM3 accumulators, Shampoo statistics)
+    is replicated."""
+    tx = optim_tx.build_optimizer(opt_cfg or OptimizerConfig())
+    abs_opt = optim_tx.abstract_chain_state(tx, params_abs)
+    p_by_path = dict(_paths(p_sh))
+
+    def one(path):
+        for i, k in enumerate(path):
+            if k in ("m", "v") and path[i + 1:] in p_by_path:
+                return p_by_path[path[i + 1:]]
+        return replicated
+
+    leaves = [one(path) for path, _ in _paths(abs_opt)]
+    it = iter(leaves)
+    return optim_tx.tree_map(lambda _: next(it), abs_opt)
+
+
+def batch_shardings(rules: shd.ShardingRules, cfg: ModelConfig,
+                    specs: Dict[str, Any]) -> Dict[str, Any]:
+    """Shardings of the batch leaves in ``specs`` (tensors or (shape,
+    kind) specs) under the activation rules."""
+    axes = {k: v for k, v in model_zoo.batch_logical_axes(cfg).items()
+            if k in specs}
+    return shd.tree_act_shardings(rules, axes, {k: specs[k] for k in axes})
+
+
+def cache_shardings(rules: shd.ShardingRules, model, batch_size: int,
+                    seq_len: int) -> Dict[str, Any]:
+    """Shardings of the model's prefill/decode cache under the activation
+    rules."""
+    return shd.tree_act_shardings(rules, model.cache_axes(),
+                                  model.cache_shapes(batch_size, seq_len))
+
+
+def shard_tree(tree: Any, shardings: Any) -> Any:
+    """Place a tree of tensors (the same global values on every rank) by a
+    tree of shardings on a ``DeviceMesh``: the counterpart of
+    ``jax.device_put`` with shardings.  Non-tensor leaves pass through."""
+    def one(t, sh):
+        if not isinstance(t, torch.Tensor) or is_dtensor(t):
+            return t
+        return distribute_tensor(t.detach(), sh.mesh, sh.placements)
+    return optim_tx.tree_map(one, tree, shardings)
+
+
+def shard_train_state(state: Dict[str, Any], rules: shd.ShardingRules,
+                      cfg: ModelConfig,
+                      opt_cfg: Optional[OptimizerConfig] = None
+                      ) -> Dict[str, Any]:
+    """A concrete train state placed by :func:`train_state_shardings`."""
+    return shard_tree(state, train_state_shardings(rules, cfg, opt_cfg))
+
+
+def unshard_tree(tree: Any) -> Any:
+    """Every DTensor leaf as its whole plain tensor (on every rank)."""
+    return optim_tx.tree_map(_plain, tree)

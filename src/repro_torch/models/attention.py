@@ -21,6 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (grad_as_value, local_call,
+                                              unflatten_last)
 from repro_torch.kernels import ATTN_BACKENDS, DECODE_BACKENDS, wants_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.kernel import gather_pages
@@ -36,17 +38,23 @@ def attention_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     """Weights in the reference layout: wq/wk/wv (d, heads, hd), wo (h, hd, d)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     s = 1.0 / math.sqrt(d)
-    defs = {"wq": ParamDef((d, h, hd), "normal", s),
-            "wk": ParamDef((d, kv, hd), "normal", s),
-            "wv": ParamDef((d, kv, hd), "normal", s),
-            "wo": ParamDef((h, hd, d), "normal", 1.0 / math.sqrt(h * hd))}
+    defs = {"wq": ParamDef((d, h, hd), "normal", s,
+                           ("embed", "heads", "head_dim")),
+            "wk": ParamDef((d, kv, hd), "normal", s,
+                           ("embed", "kv_heads", "head_dim")),
+            "wv": ParamDef((d, kv, hd), "normal", s,
+                           ("embed", "kv_heads", "head_dim")),
+            "wo": ParamDef((h, hd, d), "normal", 1.0 / math.sqrt(h * hd),
+                           ("heads", "head_dim", "embed"))}
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((h, hd), "zeros")
-        defs["bk"] = ParamDef((kv, hd), "zeros")
-        defs["bv"] = ParamDef((kv, hd), "zeros")
+        defs["bq"] = ParamDef((h, hd), "zeros", axes=("heads", "head_dim"))
+        defs["bk"] = ParamDef((kv, hd), "zeros",
+                              axes=("kv_heads", "head_dim"))
+        defs["bv"] = ParamDef((kv, hd), "zeros",
+                              axes=("kv_heads", "head_dim"))
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), "ones")
-        defs["k_norm"] = ParamDef((hd,), "ones")
+        defs["q_norm"] = ParamDef((hd,), "ones", axes=("head_dim",))
+        defs["k_norm"] = ParamDef((hd,), "ones", axes=("head_dim",))
     return defs
 
 
@@ -57,8 +65,11 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     otherwise."""
     # (B, S, d) @ (d, heads x D): one matmul each, as the reference's
     # einsum contracts d
-    q, k, v = ((x @ params[w].flatten(1)).unflatten(-1, params[w].shape[1:])
-               for w in ("wq", "wk", "wv"))
+    q, k, v = (unflatten_last(x @ grad_as_value(params[w].flatten(1)),
+                              params[w].shape[1:],
+                              ("batch", "seq", heads, None))
+               for w, heads in (("wq", "heads"), ("wk", "kv_heads"),
+                                ("wv", "kv_heads")))
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if cfg.qk_norm:
@@ -75,7 +86,7 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
 
 def _out_proj(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """ctx (B, S, H, D) through wo (H, D, d), one matmul."""
-    return ctx.flatten(-2) @ wo.flatten(0, 1)
+    return ctx.flatten(-2) @ grad_as_value(wo.flatten(0, 1))
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,9 +138,17 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
+def _flash(q, k, v):
+    return flash_attention(q, k, v, causal=True)
+
+
 def _context(q, k, v, cfg: ModelConfig, block_kv: int) -> torch.Tensor:
     if wants_kernel(cfg.attn_backend, "attn_backend", ATTN_BACKENDS):
-        return flash_attention(q, k, v, causal=True)
+        # under sharding rules each rank's kernel takes its batch rows
+        # and its whole GQA groups of heads
+        qa, kva = ("batch", None, "heads", None), ("batch", None,
+                                                  "kv_heads", None)
+        return local_call(_flash, (q, k, v), (qa, kva, kva), (qa,))
     return blockwise_attention(q, k, v, causal=True, block_kv=block_kv)
 
 
@@ -259,7 +278,11 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
             ctx = flash_decode_paged(q[:, 0], cache_k, cache_v, page_table,
                                      lengths)[:, None]
         else:
-            ctx = flash_decode(q[:, 0], cache_k, cache_v, lengths)[:, None]
+            ctx = local_call(
+                flash_decode, (q[:, 0], cache_k, cache_v, lengths),
+                (("batch", "heads", None), ("batch", None, "kv_heads", None),
+                 ("batch", None, "kv_heads", None), ("batch",)),
+                (("batch", "heads", None),))[:, None]
     else:
         kc, vc = cache_k, cache_v
         if page_table is not None:

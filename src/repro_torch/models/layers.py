@@ -1,10 +1,12 @@
 """Parameter declarations and common layers (``repro/models/layers.py:19-247``).
 
 A model is declared as a nested dict of :class:`ParamDef` leaves; the same
-tree gives materialized fp32 parameters (:func:`init_params`) and the
-parameter count.  Where the reference stacks per-layer leaves along a
-leading ``n_layers`` axis for ``lax.scan``, the port keeps a list of
-per-layer dicts and loops over it.
+tree gives materialized fp32 parameters (:func:`init_params`), meta-device
+tensors for the dry run (:func:`abstract_params`), the logical axes the
+sharding rules read (:func:`logical_axes`) and the parameter count.  Where
+the reference stacks per-layer leaves along a leading ``n_layers`` axis
+for ``lax.scan`` (logical axis ``"layers"``), the port keeps a list of
+per-layer dicts and loops over it, so its leaves have no such axis.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
+
 
 class ParamDef(NamedTuple):
     """Declaration of one parameter leaf (``layers.py:19``)."""
@@ -22,6 +26,8 @@ class ParamDef(NamedTuple):
     shape: Tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones | embed | uniform_conv
     scale: float = 1.0    # stddev for "normal" / "embed"; the uniform's limit
+    # logical axis name per dim (None = never sharded)
+    axes: Tuple[Optional[str], ...] = ()
 
     def materialize(self, generator: torch.Generator,
                     device: torch.device) -> torch.Tensor:
@@ -59,6 +65,19 @@ def init_params(defs: Any, generator: torch.Generator,
     """Materialize a ParamDef tree into fp32 tensors, leaves in sorted-key
     order from one generator."""
     return _walk(defs, lambda d: d.materialize(generator, device))
+
+
+def abstract_params(defs: Any) -> Any:
+    """fp32 ``meta`` tensors of the params' shapes: no storage
+    (``layers.py:53-56``)."""
+    return _walk(defs, lambda d: torch.empty(d.shape, dtype=torch.float32,
+                                             device="meta"))
+
+
+def logical_axes(defs: Any) -> Any:
+    """Tree of logical-axis tuples, parallel to the params tree
+    (``layers.py:59-61``)."""
+    return _walk(defs, lambda d: tuple(d.axes))
 
 
 def param_count(defs: Any) -> int:
@@ -101,10 +120,13 @@ def apply_norm(params: Dict[str, torch.Tensor], x: torch.Tensor, kind: str,
     return layer_norm(x, params["scale"], params["bias"], eps)
 
 
-def norm_def(d: int, kind: str) -> Dict[str, ParamDef]:
+def norm_def(d: int, kind: str,
+             axes: Tuple[Optional[str], ...] = ("embed",)
+             ) -> Dict[str, ParamDef]:
     if kind == "rmsnorm":
-        return {"scale": ParamDef((d,), "ones")}
-    return {"scale": ParamDef((d,), "ones"), "bias": ParamDef((d,), "zeros")}
+        return {"scale": ParamDef((d,), "ones", axes=axes)}
+    return {"scale": ParamDef((d,), "ones", axes=axes),
+            "bias": ParamDef((d,), "zeros", axes=axes)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,13 +166,18 @@ def mlp_def(d_model: int, d_ff: int, kind: str) -> Dict[str, ParamDef]:
     s_in = 1.0 / math.sqrt(d_model)
     s_out = 1.0 / math.sqrt(d_ff)
     if kind == "swiglu":
-        return {"w_gate": ParamDef((d_model, d_ff), "normal", s_in),
-                "w_up": ParamDef((d_model, d_ff), "normal", s_in),
-                "w_down": ParamDef((d_ff, d_model), "normal", s_out)}
-    return {"w_up": ParamDef((d_model, d_ff), "normal", s_in),
-            "b_up": ParamDef((d_ff,), "zeros"),
-            "w_down": ParamDef((d_ff, d_model), "normal", s_out),
-            "b_down": ParamDef((d_model,), "zeros")}
+        return {"w_gate": ParamDef((d_model, d_ff), "normal", s_in,
+                                   ("embed", "mlp")),
+                "w_up": ParamDef((d_model, d_ff), "normal", s_in,
+                                 ("embed", "mlp")),
+                "w_down": ParamDef((d_ff, d_model), "normal", s_out,
+                                   ("mlp", "embed"))}
+    return {"w_up": ParamDef((d_model, d_ff), "normal", s_in,
+                             ("embed", "mlp")),
+            "b_up": ParamDef((d_ff,), "zeros", axes=("mlp",)),
+            "w_down": ParamDef((d_ff, d_model), "normal", s_out,
+                               ("mlp", "embed")),
+            "b_down": ParamDef((d_model,), "zeros", axes=("embed",))}
 
 
 def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -186,8 +213,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean masked next-token loss in fp32 (``layers.py:229-247``).  Logit
     columns of the padded vocab get -1e9, as in the reference.  Returns
-    (loss, number of counted tokens), both 0-dim."""
-    logits = logits.float()
+    (loss, number of counted tokens), both 0-dim.  Under sharding rules
+    the vocab axis of (B, S, V) logits is gathered first: DTensor's
+    sharded-vocab gather of the labels' logits is not usable."""
+    logits = constrain(logits.float(), ("batch", "seq", None))
     padded = logits.shape[-1]
     if padded != vocab_size:
         iota = torch.arange(padded, device=logits.device)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_call
 from repro_torch.kernels import SSM_BACKENDS, chunk_padding, wants_kernel
 from repro_torch.kernels.ssd import ssd, ssd_fwd_plain
 from repro_torch.models.layers import ParamDef, rms_norm
@@ -60,9 +61,18 @@ def ssd_mix(xh: torch.Tensor, dt: torch.Tensor, a_coef: torch.Tensor,
     (B, S, H, P), dt (B, S, H), b_in/c_in (B, S, N) -> (y (B, S, H, P),
     final state (B, H, N, P))."""
     if wants_kernel(cfg.ssm_backend, "ssm_backend", SSM_BACKENDS):
-        y, state = ssd(_heads(xh), _heads(dt), a_coef, b_in, c_in,
-                       chunk=cfg.ssm_chunk)
-        return _heads(y), state
+        def run(xh, dt, a_coef, b_in, c_in):
+            y, state = ssd(_heads(xh), _heads(dt), a_coef, b_in, c_in,
+                           chunk=cfg.ssm_chunk)
+            return _heads(y).contiguous(), state
+
+        # under sharding rules each rank's kernel takes its batch rows and
+        # its heads; B and C are shared by the heads
+        bsh = ("batch", None, "ssm_heads", None)
+        return local_call(run, (xh, dt, a_coef, b_in, c_in),
+                          (bsh, bsh[:3], ("ssm_heads",), ("batch", None, None),
+                           ("batch", None, None)),
+                          (bsh, ("batch", "ssm_heads", None, None)))
     return ssd_reference(xh, dt, a_coef, b_in, c_in, cfg.ssm_chunk)
 
 
@@ -134,23 +144,28 @@ def mamba2_def(cfg: ModelConfig) -> Dict[str, Any]:
     s = 1.0 / math.sqrt(d)
     cl = 1.0 / math.sqrt(k)
     return {
-        "norm_in": {"scale": ParamDef((d,), "ones")},
-        "wz": ParamDef((d, d_inner), "normal", s),
-        "wx": ParamDef((d, d_inner), "normal", s),
-        "wb": ParamDef((d, n), "normal", s),
-        "wc": ParamDef((d, n), "normal", s),
-        "wdt": ParamDef((d, h), "normal", s),
-        "conv_x": {"w": ParamDef((k, d_inner), "uniform_conv", cl),
-                   "b": ParamDef((d_inner,), "zeros")},
-        "conv_b": {"w": ParamDef((k, n), "uniform_conv", cl),
-                   "b": ParamDef((n,), "zeros")},
-        "conv_c": {"w": ParamDef((k, n), "uniform_conv", cl),
-                   "b": ParamDef((n,), "zeros")},
-        "a_log": ParamDef((h,), "zeros"),  # A = -exp(a_log)
-        "d_skip": ParamDef((h,), "ones"),
-        "dt_bias": ParamDef((h,), "zeros"),
-        "norm_gate": {"scale": ParamDef((d_inner,), "ones")},
-        "wo": ParamDef((d_inner, d), "normal", 1.0 / math.sqrt(d_inner)),
+        "norm_in": {"scale": ParamDef((d,), "ones", axes=("embed",))},
+        "wz": ParamDef((d, d_inner), "normal", s, ("embed", "ssm_inner")),
+        "wx": ParamDef((d, d_inner), "normal", s, ("embed", "ssm_inner")),
+        "wb": ParamDef((d, n), "normal", s, ("embed", "state")),
+        "wc": ParamDef((d, n), "normal", s, ("embed", "state")),
+        "wdt": ParamDef((d, h), "normal", s, ("embed", "ssm_heads")),
+        "conv_x": {"w": ParamDef((k, d_inner), "uniform_conv", cl,
+                                 ("conv", "ssm_inner")),
+                   "b": ParamDef((d_inner,), "zeros", axes=("ssm_inner",))},
+        "conv_b": {"w": ParamDef((k, n), "uniform_conv", cl,
+                                 ("conv", "state")),
+                   "b": ParamDef((n,), "zeros", axes=("state",))},
+        "conv_c": {"w": ParamDef((k, n), "uniform_conv", cl,
+                                 ("conv", "state")),
+                   "b": ParamDef((n,), "zeros", axes=("state",))},
+        "a_log": ParamDef((h,), "zeros", axes=("ssm_heads",)),  # A = -exp(a_log)
+        "d_skip": ParamDef((h,), "ones", axes=("ssm_heads",)),
+        "dt_bias": ParamDef((h,), "zeros", axes=("ssm_heads",)),
+        "norm_gate": {"scale": ParamDef((d_inner,), "ones",
+                                        axes=("ssm_inner",))},
+        "wo": ParamDef((d_inner, d), "normal", 1.0 / math.sqrt(d_inner),
+                       ("ssm_inner", "embed")),
     }
 
 

@@ -1,6 +1,8 @@
 """Uniform model API (``repro/models/model_zoo.py:18-173``): build, init,
-count, the slot-cache specs of continuous batching, and the training batch
-layouts, for the dense, moe, rwkv and hybrid (Zamba-2) families."""
+count, the params' logical axes and meta-device shapes, the slot-cache
+specs of continuous batching, and the batch layouts and their logical axes
+(the dry run's contract), for the dense, moe, rwkv and hybrid (Zamba-2)
+families."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -43,6 +45,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """fp32 parameters drawn from ``generator`` (same distributions as the
     reference, not the same numbers: ``jax.random`` is not reproduced)."""
     return L.init_params(model_defs(cfg), generator, device)
+
+
+def abstract_params(cfg: ModelConfig) -> Any:
+    """fp32 ``meta`` tensors of the params' shapes (``model_zoo.py:45``)."""
+    return L.abstract_params(model_defs(cfg))
+
+
+def param_axes(cfg: ModelConfig) -> Any:
+    """The params' logical axes (``model_zoo.py:49``), per-layer lists where
+    the reference stacks."""
+    return L.logical_axes(model_defs(cfg))
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -110,6 +123,31 @@ def train_batch_specs(cfg: ModelConfig, batch: int, seq_len: int
                 "labels": ((batch, seq_len - p), "int")}
     return {"tokens": ((batch, seq_len), "int"),
             "labels": ((batch, seq_len), "int")}
+
+
+def batch_logical_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axes of the batch leaves (``model_zoo.py:138-146``);
+    ``tokens`` is there for the audio decode path too."""
+    if cfg.frontend == "audio_frames":
+        return {"frames": ("batch", "seq", "embed"),
+                "tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if cfg.frontend == "vision_patches":
+        return {"patch_embeds": ("batch", None, "embed"),
+                "tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+
+
+def prefill_batch_specs(cfg: ModelConfig, batch: int, seq_len: int
+                        ) -> Dict[str, Tuple[tuple, str]]:
+    """:func:`train_batch_specs` without the labels (``model_zoo.py:149``)."""
+    specs = train_batch_specs(cfg, batch, seq_len)
+    specs.pop("labels")
+    return specs
+
+
+def decode_token_specs(batch: int) -> Tuple[tuple, str]:
+    """One decode step's tokens (``model_zoo.py:156``)."""
+    return ((batch, 1), "int")
 
 
 def make_train_batch(seed: int, cfg: ModelConfig, batch: int, seq_len: int

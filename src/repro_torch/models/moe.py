@@ -7,11 +7,14 @@ capacity are dropped.  ``row_local`` ranks and sizes the buffers per batch
 row; ``global`` ranks over all B * S tokens, which is the row-local
 dispatch of the batch flattened into one row.  The experts run as batched
 matmuls over the expert axis (no custom kernel: the reference's are
-``jnp.einsum`` outside any Pallas call).  The reference's sharding
-constraints have no counterpart here.
+``jnp.einsum`` outside any Pallas call).  The expert buffers carry the
+reference's sharding constraints (``moe.py:75``, ``:83`` global,
+``:150``, ``:158`` row-local); the block's and the loss's (``:220``,
+``:230``) are ``DenseLM``'s, whose skeleton ``MoELM`` runs.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, local_call
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (ParamDef, mlp_apply, mlp_def,
                                        norm_def, round_up)
@@ -37,10 +41,13 @@ def moe_ffn_def(cfg: ModelConfig) -> Dict[str, Any]:
     s_in = 1.0 / math.sqrt(d)
     s_out = 1.0 / math.sqrt(f)
     defs: Dict[str, Any] = {
-        "router": ParamDef((d, e), "normal", s_in),
-        "w_gate": ParamDef((e, d, f), "normal", s_in),
-        "w_up": ParamDef((e, d, f), "normal", s_in),
-        "w_down": ParamDef((e, f, d), "normal", s_out),
+        "router": ParamDef((d, e), "normal", s_in, ("embed", "experts")),
+        "w_gate": ParamDef((e, d, f), "normal", s_in,
+                           ("experts", "embed", "mlp")),
+        "w_up": ParamDef((e, d, f), "normal", s_in,
+                         ("experts", "embed", "mlp")),
+        "w_down": ParamDef((e, f, d), "normal", s_out,
+                           ("experts", "mlp", "embed")),
     }
     if cfg.n_shared_experts:
         defs["shared"] = mlp_def(d, cfg.d_ff * cfg.n_shared_experts, "swiglu")
@@ -93,21 +100,17 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
     return Routing(logits, probs, gate, expert_idx, onehot, keep, dest, c)
 
 
-def moe_ffn_rowlocal(params, x: torch.Tensor, cfg: ModelConfig,
-                     with_aux: bool = True) -> Tuple[torch.Tensor, Aux]:
-    """Row-local dispatch (``moe.py:105-176``): x (B, S, d) -> (y, aux),
-    aux None unless ``with_aux`` (serving reads no aux loss).
+def _dispatch(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+    """Each row's routing and expert buffers: ``(buf (B, E, C, d), dest,
+    w (B, S*k, 1) the kept assignments' gates, probs, the router logits'
+    logsumexp (B, S), onehot, keep)``.
 
     Each row's slots are filled through an inverse slot -> assignment map
     (drops all land in the one sentinel slot E*C, which is cut off; an
-    empty slot reads a zero row appended to x), the experts run as three
-    ``bmm`` over the expert axis, and each token sums its assignments'
-    outputs times their gates (a dropped one reads a zero row, so its
-    gate times ``keep`` is the reference's same zero).
-    """
+    empty slot reads a zero row appended to x)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    r = route(params["router"], x, cfg)
+    r = route(router, x, cfg)
     c = r.c
     inv = torch.full((b, e * c + 1), s * k, dtype=torch.int64,
                      device=x.device)
@@ -116,24 +119,65 @@ def moe_ffn_rowlocal(params, x: torch.Tensor, cfg: ModelConfig,
     # (B, E*C): the token in each slot, s (the zero row) where empty
     tok = inv[:, :e * c] // k
     buf = F.pad(x, (0, 0, 0, 1)).gather(1, tok[..., None].expand(-1, -1, d))
-    xb = buf.reshape(b, e, c, d).transpose(0, 1).reshape(e, b * c, d)
+    w = r.gate.reshape(b, s * k, 1).to(x.dtype)
+    return (buf.reshape(b, e, c, d), r.dest, w, r.probs,
+            torch.logsumexp(r.logits, dim=-1), r.onehot, r.keep)
+
+
+def _combine(y_buf: torch.Tensor, dest: torch.Tensor, w: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """Each token's sum of its assignments' outputs times their gates (a
+    dropped one reads a zero row, so its gate times ``keep`` is the
+    reference's same zero): y_buf (B, E, C, d) -> (B, S, d)."""
+    b, e, c, d = y_buf.shape
+    y_flat = F.pad(y_buf.reshape(b, e * c, d), (0, 0, 0, 1))
+    y_assign = y_flat.gather(1, dest[..., None].expand(-1, -1, d))
+    return (y_assign * w).reshape(b, -1, k, d).sum(dim=2)
+
+
+def moe_ffn_rowlocal(params, x: torch.Tensor, cfg: ModelConfig,
+                     with_aux: bool = True,
+                     batch_axis: Optional[str] = "batch"
+                     ) -> Tuple[torch.Tensor, Aux]:
+    """Row-local dispatch (``moe.py:105-176``): x (B, S, d) -> (y, aux),
+    aux None unless ``with_aux`` (serving reads no aux loss).
+
+    The routing and the slot gathers (:func:`_dispatch`, :func:`_combine`)
+    are index ops of whole rows: under sharding rules each rank runs them
+    on its own rows (``local_call`` over ``batch_axis``; the global
+    dispatch's one row is no batch axis, so every rank runs all of it).
+    The experts run as three ``bmm`` over the expert axis, whose buffers
+    are constrained to (``batch_axis``, "experts", ...).
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = capacity(s, cfg)
+    rows = (batch_axis, None, None)
+    buf, dest, w, probs, lse, onehot, keep = local_call(
+        functools.partial(_dispatch, cfg=cfg), (params["router"], x),
+        ((None, None), rows),
+        ((batch_axis, None, None, None), (batch_axis, None), rows, rows,
+         (batch_axis, None), rows, (batch_axis, None)))
+    buf_axes = (batch_axis, "experts", None, None)
+    buf = constrain(buf, buf_axes)
+    xb = buf.transpose(0, 1).reshape(e, b * c, d)
     h = F.silu(torch.bmm(xb, params["w_gate"])) * torch.bmm(
         xb, params["w_up"])
     y_buf = torch.bmm(h, params["w_down"]).reshape(e, b, c, d)
-    y_flat = F.pad(y_buf.transpose(0, 1).reshape(b, e * c, d), (0, 0, 0, 1))
-    y_assign = y_flat.gather(1, r.dest[..., None].expand(-1, -1, d))
-    w = r.gate.reshape(b, s * k, 1).to(x.dtype)
-    y = (y_assign * w).reshape(b, s, k, d).sum(dim=2)
+    y_buf = constrain(y_buf.transpose(0, 1), buf_axes)
+    y = local_call(functools.partial(_combine, k=k), (y_buf, dest, w),
+                   ((batch_axis, None, None, None), (batch_axis, None),
+                    rows), (rows,))
     if cfg.n_shared_experts:
         y = y + mlp_apply(params["shared"], x, "swiglu")
     if not with_aux:
         return y, None
-    me = r.probs.reshape(-1, e).mean(dim=0)
-    ce_frac = r.onehot.sum(dim=(0, 1)).float() / (b * s * k)
+    me = probs.reshape(-1, e).mean(dim=0)
+    ce_frac = onehot.sum(dim=(0, 1)).float() / (b * s * k)
     aux = {
         "load_balance": e * torch.sum(me * ce_frac),
-        "router_z": torch.logsumexp(r.logits, dim=-1).square().mean(),
-        "dropped_frac": 1.0 - r.keep.float().mean(),
+        "router_z": lse.square().mean(),
+        "dropped_frac": 1.0 - keep.float().mean(),
     }
     return y, aux
 
@@ -144,7 +188,8 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
     B * S tokens, ranked in token order, which is the row-local dispatch
     of the batch flattened into a single row."""
     b, s, d = x.shape
-    y, aux = moe_ffn_rowlocal(params, x.reshape(1, b * s, d), cfg, with_aux)
+    y, aux = moe_ffn_rowlocal(params, x.reshape(1, b * s, d), cfg, with_aux,
+                              batch_axis=None)
     return y.reshape(b, s, d), aux
 
 
@@ -164,10 +209,11 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
              "attn": attn_mod.attention_def(cfg),
              "ln2": norm_def(d, cfg.norm),
              "moe": moe_ffn_def(cfg)}
-    return {"embed": ParamDef((pv, d), "embed", 0.02),
+    return {"embed": ParamDef((pv, d), "embed", 0.02, ("vocab", "embed")),
             "layers": [layer] * cfg.n_layers,
             "final_norm": norm_def(d, cfg.norm),
-            "lm_head": ParamDef((d, pv), "normal", 1.0 / math.sqrt(d))}
+            "lm_head": ParamDef((d, pv), "normal", 1.0 / math.sqrt(d),
+                                ("embed", "vocab"))}
 
 
 @dataclass

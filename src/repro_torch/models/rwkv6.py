@@ -24,6 +24,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, local_call
 from repro_torch.kernels import RWKV_BACKENDS, chunk_padding, wants_kernel
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_fwd_plain
 from repro_torch.models.layers import (ParamDef, advance_pos, cache_dtypes,
@@ -63,9 +64,17 @@ def wkv6_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Backend dispatch at the model layout (``rwkv6.py:96-112``): r, k, v,
     log_w (B, S, H, D), u (H, D) -> (y (B, S, H, D), final state)."""
     if wants_kernel(cfg.rwkv_backend, "rwkv_backend", RWKV_BACKENDS):
-        y, state = wkv6(*(_heads(t) for t in (r, k, v, log_w)), u,
-                        chunk=cfg.rwkv_chunk)
-        return _heads(y), state
+        def run(r, k, v, log_w, u):
+            y, state = wkv6(*(_heads(t) for t in (r, k, v, log_w)), u,
+                            chunk=cfg.rwkv_chunk)
+            return _heads(y).contiguous(), state
+
+        # under sharding rules each rank's kernel takes its batch rows and
+        # its heads
+        bsh = ("batch", None, "rwkv_heads", None)
+        return local_call(run, (r, k, v, log_w, u),
+                          (bsh,) * 4 + (("rwkv_heads", None),),
+                          (bsh, ("batch", "rwkv_heads", None, None)))
     return wkv6_reference(r, k, v, log_w, u, cfg.rwkv_chunk)
 
 
@@ -93,22 +102,25 @@ def rwkv6_def(cfg: ModelConfig) -> Dict[str, Any]:
     s = 1.0 / math.sqrt(d)
     return {
         "ln1": norm_def(d, "layernorm"),
-        "mix": ParamDef((5, d), "zeros"),  # r, k, v, w, g token-shift lerps
-        "w_base": ParamDef((d,), "zeros"),
-        "w_lora_a": ParamDef((d, rank), "normal", s),
-        "w_lora_b": ParamDef((rank, d), "zeros"),
-        "wr": ParamDef((d, d), "normal", s),
-        "wk": ParamDef((d, d), "normal", s),
-        "wv": ParamDef((d, d), "normal", s),
-        "wg": ParamDef((d, d), "normal", s),
-        "u": ParamDef((d // hd, hd), "normal", 0.5),
-        "ln_x": norm_def(d, "layernorm"),
-        "wo": ParamDef((d, d), "normal", s),
+        # r, k, v, w, g token-shift lerps
+        "mix": ParamDef((5, d), "zeros", axes=(None, "embed")),
+        "w_base": ParamDef((d,), "zeros", axes=("rwkv_inner",)),
+        "w_lora_a": ParamDef((d, rank), "normal", s, ("embed", None)),
+        "w_lora_b": ParamDef((rank, d), "zeros", axes=(None, "rwkv_inner")),
+        "wr": ParamDef((d, d), "normal", s, ("embed", "rwkv_inner")),
+        "wk": ParamDef((d, d), "normal", s, ("embed", "rwkv_inner")),
+        "wv": ParamDef((d, d), "normal", s, ("embed", "rwkv_inner")),
+        "wg": ParamDef((d, d), "normal", s, ("embed", "rwkv_inner")),
+        "u": ParamDef((d // hd, hd), "normal", 0.5, ("rwkv_heads", None)),
+        "ln_x": norm_def(d, "layernorm", ("rwkv_inner",)),
+        "wo": ParamDef((d, d), "normal", s, ("rwkv_inner", "embed")),
         "ln2": norm_def(d, "layernorm"),
-        "mix_c": ParamDef((2, d), "zeros"),  # channel-mix k, r lerps
-        "wck": ParamDef((d, cfg.d_ff), "normal", s),
-        "wcv": ParamDef((cfg.d_ff, d), "normal", 1.0 / math.sqrt(cfg.d_ff)),
-        "wcr": ParamDef((d, d), "normal", s),
+        # channel-mix k, r lerps
+        "mix_c": ParamDef((2, d), "zeros", axes=(None, "embed")),
+        "wck": ParamDef((d, cfg.d_ff), "normal", s, ("embed", "mlp")),
+        "wcv": ParamDef((cfg.d_ff, d), "normal", 1.0 / math.sqrt(cfg.d_ff),
+                        ("mlp", "embed")),
+        "wcr": ParamDef((d, d), "normal", s, ("embed", "rwkv_inner")),
     }
 
 
@@ -179,7 +191,8 @@ def rwkv6_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One block, the training forward (``rwkv6.py:190-220``)."""
     x, _, _ = _time_mix(lp, x, cfg)
     xn = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], cfg.norm_eps)
-    return _channel_mix(lp, x, xn, _shift(xn))
+    return constrain(_channel_mix(lp, x, xn, _shift(xn)),
+                     ("batch", "seq", "embed"))
 
 
 def rwkv6_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -188,11 +201,12 @@ def rwkv6_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     pv = round_up(cfg.vocab_size, 128)
     return {
-        "embed": ParamDef((pv, d), "embed", 0.02),
+        "embed": ParamDef((pv, d), "embed", 0.02, ("vocab", "embed")),
         "ln_in": norm_def(d, "layernorm"),
         "layers": [rwkv6_def(cfg)] * cfg.n_layers,
         "final_norm": norm_def(d, "layernorm"),
-        "lm_head": ParamDef((d, pv), "normal", 1.0 / math.sqrt(d)),
+        "lm_head": ParamDef((d, pv), "normal", 1.0 / math.sqrt(d),
+                            ("embed", "vocab")),
     }
 
 
@@ -221,7 +235,8 @@ class RWKV6LM:
         """Mean next-token loss over tokens (B, S) against labels (B, S)
         -> (loss, {"loss", "tokens"})."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = constrain(self._embed(params, batch["tokens"]),
+                      ("batch", "seq", "embed"))
         for lp in params["layers"]:
             if self.remat == "full":
                 x = torch.utils.checkpoint.checkpoint(

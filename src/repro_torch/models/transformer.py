@@ -21,6 +21,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, zeros_like_act
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (ParamDef, advance_pos, apply_norm,
                                        cross_entropy_loss, mlp_apply, mlp_def,
@@ -37,14 +38,16 @@ def dense_defs(cfg: ModelConfig) -> Dict[str, Any]:
     layer = {"ln1": norm_def(d, cfg.norm), "attn": attn_mod.attention_def(cfg),
              "ln2": norm_def(d, cfg.norm), "mlp": mlp_def(d, cfg.d_ff, cfg.mlp)}
     defs: Dict[str, Any] = {
-        "embed": ParamDef((pv, d), "embed", 0.02),
+        "embed": ParamDef((pv, d), "embed", 0.02, ("vocab", "embed")),
         "layers": [layer] * cfg.n_layers,
         "final_norm": norm_def(d, cfg.norm),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, pv), "normal", 1.0 / math.sqrt(d))
+        defs["lm_head"] = ParamDef((d, pv), "normal", 1.0 / math.sqrt(d),
+                                   ("embed", "vocab"))
     if cfg.pos_emb == "learned":
-        defs["pos_embed"] = ParamDef((cfg.max_seq_len, d), "embed", 0.02)
+        defs["pos_embed"] = ParamDef((cfg.max_seq_len, d), "embed", 0.02,
+                                     ("pos", "embed"))
     return defs
 
 
@@ -123,10 +126,13 @@ class DenseLM:
         h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
         a, _ = attn_mod.full_attention(lp["attn"], h, cfg,
                                        block_kv=self.block_kv)
-        x = x + a
+        # Megatron's all-reduce after the attention: the residual stream
+        # stays whole over "model" (DTensor would otherwise shard it
+        # where GSPMD would not)
+        x = constrain(x + a, ("batch", "seq", "embed"))
         y, aux = self._ffn(lp, apply_norm(lp["ln2"], x, cfg.norm,
                                           cfg.norm_eps))
-        return x + y, aux
+        return constrain(x + y, ("batch", "seq", "embed")), aux
 
     def _metrics(self, loss: torch.Tensor, denom: torch.Tensor, auxes: list
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -141,6 +147,7 @@ class DenseLM:
         reference raises on it."""
         cfg = self.cfg
         x = embed_inputs(params, batch, cfg, _zero_pos(_first(batch)))
+        x = constrain(x, ("batch", "seq", "embed"))
         auxes = []
         for lp in params["layers"]:
             if self.remat == "full":
@@ -168,17 +175,21 @@ class DenseLM:
         b, s = x.shape[:2]
         cache_len = cache_len or s
         shape, dtype = self.cache_shapes(b, cache_len)["k"][0], x.dtype
-        ks = torch.zeros(shape, dtype=dtype, device=x.device)
-        vs = torch.zeros(shape, dtype=dtype, device=x.device)
+        axes = self.cache_axes()["k"]
+        ks = zeros_like_act(shape, dtype, x, axes)
+        vs = zeros_like_act(shape, dtype, x, axes)
         for i, lp in enumerate(params["layers"]):
             h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
             a, (k, v) = attn_mod.full_attention(lp["attn"], h, cfg,
                                                 block_kv=self.block_kv)
             ks[i, :, :s] = k
             vs[i, :, :s] = v
-            x = x + a
+            x = constrain(x + a, ("batch", "seq", "embed"))
             x = x + self._ffn(lp, apply_norm(lp["ln2"], x, cfg.norm,
                                              cfg.norm_eps), False)[0]
+            # the block's constraint (``transformer.py:89``), which the
+            # reference's prefill scan runs too
+            x = constrain(x, ("batch", "seq", "embed"))
         logits = _logits(params, x[:, -1:, :], cfg)[:, 0]
         pos = torch.tensor(s, dtype=torch.int64, device=x.device)
         return logits, {"k": ks, "v": vs, "pos": pos}

@@ -26,6 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (ParamDef, advance_pos, apply_norm,
@@ -45,14 +46,15 @@ def zamba2_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     pv = round_up(cfg.vocab_size, 128)
     return {
-        "embed": ParamDef((pv, d), "embed", 0.02),
+        "embed": ParamDef((pv, d), "embed", 0.02, ("vocab", "embed")),
         "mamba_layers": [mamba2.mamba2_def(cfg)] * cfg.n_layers,
         "shared": {"ln1": norm_def(d, cfg.norm),
                    "attn": attn_mod.attention_def(cfg),
                    "ln2": norm_def(d, cfg.norm),
                    "mlp": mlp_def(d, cfg.d_ff, cfg.mlp)},
         "final_norm": norm_def(d, cfg.norm),
-        "lm_head": ParamDef((d, pv), "normal", 1.0 / math.sqrt(d)),
+        "lm_head": ParamDef((d, pv), "normal", 1.0 / math.sqrt(d),
+                            ("embed", "vocab")),
     }
 
 
@@ -62,9 +64,10 @@ def _shared_block(shared, x: torch.Tensor, cfg: ModelConfig, block_kv: int
     (k, v))."""
     h = apply_norm(shared["ln1"], x, cfg.norm, cfg.norm_eps)
     a, kv = attn_mod.full_attention(shared["attn"], h, cfg, block_kv=block_kv)
-    x = x + a
+    x = constrain(x + a, ("batch", "seq", "embed"))
     h = apply_norm(shared["ln2"], x, cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(shared["mlp"], h, cfg.mlp), kv
+    return constrain(x + mlp_apply(shared["mlp"], h, cfg.mlp),
+                     ("batch", "seq", "embed")), kv
 
 
 @dataclass
@@ -103,7 +106,8 @@ class Zamba2LM:
         """Mean next-token loss over tokens (B, S) against labels (B, S)
         (``zamba2.py:80-105``) -> (loss, {"loss", "tokens"})."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = constrain(self._embed(params, batch["tokens"]),
+                      ("batch", "seq", "embed"))
         for i, lp in enumerate(params["mamba_layers"]):
             x = self._run(mamba2.mamba2_block, lp, x, cfg)
             if (i + 1) % cfg.attn_every == 0:

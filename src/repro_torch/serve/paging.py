@@ -27,8 +27,9 @@ in the same dict; for RWKV-6 the paged state is a structural no-op
 The allocator lives on the host.  The device table is uploaded only when
 the host table changed (``decode``), not every step.  Prefill and replay
 still run on dense batch=1 caches (``row``/``stack_rows``/replay ``decode``
-are the dense state's); paging starts at ``insert``.  ``shardings`` waits
-for the distributed slice (ROADMAP A14).
+are the dense state's); paging starts at ``insert``.  ``shardings`` keeps
+the pools' head axes on the activation rules and replicates their page
+axes and the page table (``paging.py:419-438``).
 """
 from __future__ import annotations
 
@@ -190,6 +191,11 @@ class PagedDecodeState(SlotDecodeState):
         self.table_uploads = 0
         self.refusals = 0
 
+    def shardings(self, rules, n_slots: int, cache_len: int):
+        """Pools keep their head and state axes on the activation rules;
+        page axes and the page table are replicated."""
+        return _paged_shardings(self, rules, n_slots, cache_len)
+
     # -- protocol ------------------------------------------------------------
     def init_slots(self, n_slots: int, cache_len: int, dtype: torch.dtype,
                    device: torch.device) -> Cache:
@@ -319,6 +325,22 @@ class PagedDecodeState(SlotDecodeState):
         act = self._host_active
         self._host_pos[act] = np.minimum(self._host_pos[act] + 1, cap)
         return logits, cache
+
+
+def _paged_shardings(state: "PagedDecodeState", rules, n_slots: int,
+                     cache_len: int):
+    from repro_torch.distributed.sharding import tree_act_shardings
+    specs = paged_cache_specs(state.model, n_slots, cache_len,
+                              state.page_size, state.n_pages)
+    # a page is not slot-owned: a pool's (page, in-page) axes take no
+    # "batch" or "seq" rule
+    axes = {name: (tuple(None if a in ("batch", "seq") else a for a in ax)
+                   if "seq" in ax else ax)
+            for name, ax in model_zoo.decode_cache_axes(state.model).items()}
+    out = tree_act_shardings(rules, axes, specs)
+    table = ((n_slots, pages_for(cache_len, state.page_size)), "int")
+    out["page_table"] = tree_act_shardings(rules, (None, None), table)
+    return out
 
 
 def cache_nbytes(cache: Cache) -> int:

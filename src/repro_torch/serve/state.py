@@ -70,6 +70,14 @@ class SlotDecodeState:
         return model_zoo.init_decode_cache(self.model, n_slots, cache_len,
                                            dtype, device)
 
+    def shardings(self, rules, n_slots: int, cache_len: int):
+        """Sharding tree of the slot cache under the activation rules
+        (``state.py:203-209``): the slot axis rides the "batch" rule."""
+        from repro_torch.distributed.sharding import tree_act_shardings
+        return tree_act_shardings(
+            rules, model_zoo.decode_cache_axes(self.model),
+            model_zoo.decode_cache_specs(self.model, n_slots, cache_len))
+
     def insert_many(self, cache: Cache, slots: torch.Tensor,
                     rows: Cache) -> Cache:
         """Scatter a batch=k model-format cache into ``slots`` ((k,), all

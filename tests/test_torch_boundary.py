@@ -4,10 +4,13 @@ fallback, and no ported-looking option that quietly does nothing.
 * With ``jax`` blocked, every ``repro_torch`` module, ``chip_smoke`` and
   the port's examples (``examples/torch_*.py``) import, and none of them
   pulls in ``repro`` or a ``repro.*`` module.
+* An option not wired into the port raises: ``--remat dots`` and
+  ``grad_compression``.
 * The entry points (the examples too) default to CUDA and raise where
   there is none.
 * On CPU tensors the kernel wrappers (flash attention, flash decode,
-  WKV-6, SSD) run their plain versions and count no launch.
+  WKV-6, SSD) run their plain versions and count no launch; a DTensor
+  never reaches one (a sharded step hands the kernels local tensors).
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo.
 """
@@ -41,7 +44,12 @@ for path in {examples!r}:
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for name in ("repro_torch.core.telemetry", "repro_torch.optim.adam",
              "repro_torch.gns.estimator", "repro_torch.gns.precursor",
-             "repro_torch.gns.regulator"):
+             "repro_torch.gns.regulator", "repro_torch.distributed.compat",
+             "repro_torch.distributed.sharding",
+             "repro_torch.distributed.collectives", "repro_torch.launch.mesh",
+             "repro_torch.launch.dryrun", "repro_torch.optim.compression",
+             "repro_torch.roofline.hw", "repro_torch.roofline.analysis",
+             "repro_torch.roofline.op_cost"):
     assert name in names, name
 leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 print(len(names), leaked)
@@ -192,6 +200,20 @@ def test_train_cli_refuses_what_is_not_ported():
                     "--batch", "2", "--seq", "16", "--remat", "dots"])
 
 
+def test_train_step_refuses_grad_compression():
+    """The reference's ``grad_compression`` fields ride in the config, but
+    no train step syncs through the compressed all-reduce: setting one
+    raises rather than run the exact sync under its name."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo
+    model = model_zoo.build_model(reduced(get_arch("gpt2-117m")))
+    steps.make_train_step(model, OptimizerConfig())
+    with pytest.raises(NotImplementedError, match="grad_compression"):
+        steps.make_train_step(model, OptimizerConfig(grad_compression=True))
+
+
 def test_train_cli_recovers_from_an_injected_fault(capsys):
     from repro_torch.launch import train
     assert train.main(["--reduced", "--device", "cpu", "--steps", "8",
@@ -336,3 +358,27 @@ def test_chip_smoke_fails_without_a_card():
 def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     assert _no_result(_run_chip_smoke(tmp_path))
+
+
+def test_kernel_wrappers_refuse_dtensors(tmp_path):
+    """A DTensor reaching a kernel wrapper raises, on any device: the
+    sharded step calls kernels through ``sharding.local_call``."""
+    import torch.distributed as dist
+    from repro_torch.distributed.compat import (Replicate, distribute_tensor,
+                                                init_device_mesh)
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_decode import flash_decode_fwd
+    before = flash_attention_fwd.launches
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        q = distribute_tensor(torch.randn(2, 8, 16), mesh, [Replicate()])
+        with pytest.raises(TypeError, match="DTensor"):
+            flash_attention_fwd(q, q, q)
+        with pytest.raises(TypeError, match="DTensor"):
+            flash_decode_fwd(q.reshape(2, 1, 8, 16)[:, :, :1], q, q,
+                             torch.ones(2, dtype=torch.int32))
+        assert flash_attention_fwd.launches == before
+    finally:
+        dist.destroy_process_group()
