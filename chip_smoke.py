@@ -86,7 +86,7 @@ weights from a seed:
   cut to 12 of its 54 layers served from 8 slots (launch counts, greedy streams against
   the plain reference backends, the router with a replica whose shared
   attention KV really lives in pages, and a migration each way), and
-  trained at full depth with remat "full" for 20 SLW steps (finite
+  trained 36 layers deep with remat "full" for 20 SLW steps (finite
   losses, plans, launch counts, every gradient leaf of two batches and 8
   steps' losses against the reference SSD backend, and a planted fault in
   the backward that the gradient check must catch);
@@ -94,7 +94,7 @@ weights from a seed:
   (forward at every prefill, forward and backward at every training
   shape), the GQA Function at the other presets' (D, G) and the decode
   kernels, dense and paged, at (128, 1), (128, 4), (128, 6), (64, 3) and
-  (80, 8); then the model at full width and all 28 layers (67.5 GB of fp32
+  (80, 8); then the model at full width cut to 14 of its 28 layers (fp32
   weights drawn on the card) served from 8 slots (launch counts, greedy
   streams against a twin engine with the plain backends on the same
   weight tensors, its top-k routing pinned to the kernel engine's, the
@@ -113,6 +113,19 @@ weights from a seed:
   ``reference_decode``, 20 error-feedback compressed all-reduces of a
   gpt2-117m gradient, and ``model_flops`` against ``roofline.op_cost``'s
   count of one 16 x 1024 step with its share of the fp32 peak.
+* the paper's GPT-2 1.5B at full width and depth (48 layers, d 1600, 25
+  heads of 64; weights drawn on the card): the flash kernels at 25 heads
+  (forward at every prefill, forward and backward at every training
+  shape, decode at G = 1); 8 SLW steps of 8 x 1024 and one eval through
+  the Trainer under remat "dots" (plans, finite losses, each layer's
+  forward kernel launched twice a step); the remat policies "none",
+  "dots" and "full" side by side on one 4 x 1024 batch (peak memory,
+  time, the "dots" and "full" gradients against "none"'s); then 8
+  requests of up to 512 tokens served on the trained weights, 32 greedy
+  tokens each, against a plain twin on the same weight tensors.  The
+  rwkv6-7b and zamba2-2.7b serving phases end with one loss-and-gradient
+  pass under remat "none" and "dots" on their weights (``remat_dots_*``:
+  gradients bit-equal, the forward kernels' launches doubled).
 
 A NaN planted in q, k or v must leave the flash forward and backward
 kernels' and the two decode kernels' outputs non-finite wherever their
@@ -3305,14 +3318,16 @@ def _serve_model(model, params, reqs, **kw) -> dict:
             "p95_s": s.latency_percentile(95)}
 
 
-def phase_engine_rwkv(dev: dict, fwd_checked: set) -> dict:
+def phase_engine_rwkv(dev: dict, fwd_checked: set, bwd_checked: set,
+                      remat_shape: tuple) -> dict:
     """Serves rwkv6-7b at full width, RWKV_SERVE_LAYERS deep (fp32, weights
     from a CUDA generator seeded with SEED) in 8 slots: 16 requests from
     ``make_requests``, fcfs.  Checks the launch counts (wkv6_fwd layers x
     prefill calls, no other kernel), the greedy streams against the same
     engine at rwkv_backend="reference", and serves the first 8 requests
     once more through the router (a paged and a dense replica) and moves
-    one request each way between them mid-flight."""
+    one request each way between them mid-flight.  Then remat "dots" on
+    the same weights at ``remat_shape`` (:func:`check_remat_dots`)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import make_requests, scheduler_config
     from repro_torch.models import model_zoo
@@ -3412,6 +3427,11 @@ def phase_engine_rwkv(dev: dict, fwd_checked: set) -> dict:
           f"rwkv router launches {router_launches}")
     reps[0].state.alloc.check()
     check(reps[0].state.alloc.pages_in_use == 0, "rwkv pages left in use")
+    kshape = _wkv_kernel_shape(*remat_shape)
+    check(kshape in fwd_checked and kshape in bwd_checked,
+          f"rwkv remat shape {kshape} not checked")
+    remat = check_remat_dots(cfg, params, remat_shape, "rwkv")
+    emit("remat_dots_rwkv6", arch=cfg.name, rtol=REMAT_RTOL, **remat)
     emit("engine_rwkv", card=dev["nvidia_smi"], arch=cfg.name,
          n_layers=cfg.n_layers, params=model_zoo.param_count(cfg),
          weight_init_s=init_s, prefill_tok_s=out["prefill_tok_s"],
@@ -3433,7 +3453,9 @@ def phase_engine_rwkv(dev: dict, fwd_checked: set) -> dict:
                  "admission_waits": reps[0].state.refusals,
                  "migrations": moves, "launches": router_launches})
     return {"serve_rwkv": {"wkv6_fwd": launches["wkv6_fwd"]},
-            "router_rwkv": {"wkv6_fwd": router_launches["wkv6_fwd"]}}
+            "router_rwkv": {"wkv6_fwd": router_launches["wkv6_fwd"]},
+            "remat_dots_rwkv": _summed(remat["launches_none"],
+                                       remat["launches_dots"])}
 
 
 def rwkv_train_config(backend: str = "kernel", remat: str = "none"):
@@ -3709,10 +3731,13 @@ def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
 # ---------------------------------------------------------------------------
 
 SSD_H, SSD_P, SSD_N, SSD_CHUNK = 80, 64, 64, 128  # zamba2-2.7b's SSD
-# training: zamba2-2.7b at full width and depth, remat "full", global batch
+# training: zamba2-2.7b at full width, remat "full", global batch
 # 8 of sequences of 1024, SLW linear from 8 over 12 steps, batch warmup
 # from 4, 20 steps, one eval of 8 sequences
 ZAMBA_B, ZAMBA_STEPS, ZAMBA_EVAL = 8, 20, 8
+# cut to 36 of its 54 layers (6 of 9 shared-block groups) for the gpt2-1.5b
+# phases (PR 25); full depth from PR 15 to PR 24 (58.2 GB peak)
+ZAMBA_TRAIN_LAYERS = 36
 # serving: zamba2-2.7b at full width cut to 12 of its 54 Mamba-2 layers (2
 # of its 9 shared-block groups), for the same reason as RWKV_SERVE_LAYERS
 # (140-189 s at full depth; 18 layers before the MoE phases, 12 since)
@@ -3971,7 +3996,8 @@ def _replay_steps(reqs, ladder) -> int:
 
 
 def phase_engine_zamba(dev: dict, fwd_checked: set, fd_checked: set,
-                       pd_checked: set) -> dict:
+                       pd_checked: set, bwd_checked: set,
+                       remat_shape: tuple) -> dict:
     """Serves zamba2-2.7b at full width, ZAMBA_SERVE_LAYERS deep (fp32,
     weights from a CUDA generator seeded with SEED) in 8 slots of 576: 16
     requests from ``make_requests``, fcfs.  Checks the launch counts
@@ -3981,7 +4007,8 @@ def phase_engine_zamba(dev: dict, fwd_checked: set, fd_checked: set,
     first 4 requests once more through the router (a paged replica, whose
     shared-block KV lives in pages, and a dense one) and moves one request
     each way between them mid-flight (fewer than the rwkv phase's 8: a
-    fused zamba step takes the host ~90 ms)."""
+    fused zamba step takes the host ~90 ms).  Then remat "dots" on the
+    same weights at ``remat_shape`` (:func:`check_remat_dots`)."""
     from repro_torch.launch.serve import make_requests, scheduler_config
     from repro_torch.models import model_zoo
     from repro_torch.serve import Replica, Router, prefill_split
@@ -4120,13 +4147,22 @@ def phase_engine_zamba(dev: dict, fwd_checked: set, fd_checked: set,
                  "pages_in_use_mid_flight": peak_pages,
                  "table_uploads": reps[0].state.table_uploads,
                  "migrations": moves, "launches": router_launches})
-    del reps, model, plain_model, params, eng, out
+    del reps, model, plain_model, eng, out
+    torch.cuda.empty_cache()
+    kshape = _ssd_kernel_shape(*remat_shape)
+    check(kshape in fwd_checked and kshape in bwd_checked,
+          f"zamba remat shape {kshape} not checked")
+    remat = check_remat_dots(cfg, params, remat_shape, "zamba")
+    emit("remat_dots_zamba2", arch=cfg.name, rtol=REMAT_RTOL, **remat)
+    del params
     torch.cuda.empty_cache()
     return {"serve_zamba": {k: launches[k] for k in
                             ("ssd_fwd", "flash_decode_fwd")},
             "router_zamba": {k: router_launches[k] for k in
                              ("ssd_fwd", "flash_decode_fwd",
-                              "flash_decode_paged_fwd")}}
+                              "flash_decode_paged_fwd")},
+            "remat_dots_zamba": _summed(remat["launches_none"],
+                                        remat["launches_dots"])}
 
 
 def zamba_train_config(backend: str = "kernel"):
@@ -4134,7 +4170,8 @@ def zamba_train_config(backend: str = "kernel"):
                                      SLWConfig, TrainConfig, get_arch)
     tokens = ZAMBA_STEPS * ZAMBA_B * S_TRAIN
     return TrainConfig(
-        model=get_arch("zamba2-2.7b").replace(ssm_backend=backend),
+        model=get_arch("zamba2-2.7b").replace(
+            n_layers=ZAMBA_TRAIN_LAYERS, ssm_backend=backend),
         optimizer=OptimizerConfig(
             lr=6e-4, schedule="token_cosine", warmup_steps=6,
             warmup_tokens=6 * ZAMBA_B * S_TRAIN, total_steps=ZAMBA_STEPS,
@@ -4166,32 +4203,30 @@ SSM_LEAVES = ("wx", "wb", "wc", "wdt", "a_log", "dt_bias")
 
 
 def _compare_zamba_grads(model, params, batch, eps: float, limit: float,
-                         host: bool = False, fault: bool = False) -> dict:
+                         fault: bool = False) -> dict:
     """:func:`_compare_grads_at_eps` against ssm_backend="reference", remat
     "full" on both: the Mamba-2 projections, a_log and dt_bias of every
     layer need a gradient.  ``fault``: the planted dB x (1 + SSD_FAULT)."""
     out, _ = _compare_grads_at_eps(
         model, {"ssm_backend": "reference"}, params, batch, eps, limit,
         lambda name: name.split(".")[-1] in SSM_LEAVES,
-        (_planted_ssd_fault, {"db_scale": 1 + SSD_FAULT}) if fault else None,
-        host)
+        (_planted_ssd_fault, {"db_scale": 1 + SSD_FAULT}) if fault else None)
     return out
 
 
 def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
-    """Trains zamba2-2.7b at full width and depth through the Trainer
-    (remat "full", weights from a CUDA generator seeded with SEED): 20 SLW
-    steps and one full-length eval, then 2 full-length steps untraced and
-    2 under the profiler (6.5 s each).  Against ssm_backend="reference": every gradient
-    leaf of the first step's batch at the initial weights and of the last
-    step's (8 x 1024) at the trained weights, at the norms' eps raised to
-    ZAMBA_GRAD_EPS with a planted fault that must break the limit, and
-    for the first batch reported only at the model's own (the trained
-    batch's report went to make room for phase ``distributed``); then the
-    first 8 steps' losses from the same initial weights.  The weights
-    kept for those comparisons wait on the host: two more 9.7 GB copies
-    beside the trainer's 38.8 GB of state and its activations would not
-    fit on the card."""
+    """Trains zamba2-2.7b at full width, ZAMBA_TRAIN_LAYERS deep, through
+    the Trainer (remat "full", weights from a CUDA generator seeded with
+    SEED): 20 SLW steps and one full-length eval, then 2 full-length steps
+    untraced and 2 under the profiler.  Against ssm_backend="reference":
+    every gradient leaf of the first step's batch at the initial weights
+    and of the last step's (8 x 1024) at the trained weights, at the
+    norms' eps raised to ZAMBA_GRAD_EPS with a planted fault that must
+    break the limit (the report at the model's own eps went for the
+    gpt2-1.5b phases); then the first 8 steps' losses from the same
+    initial weights.  The weights kept for those comparisons wait on the
+    host: at full depth two more 9.7 GB copies beside the trainer's 38.8
+    GB of state and its activations would not fit on the card."""
     from repro_torch.core.regulators import predict_trajectory
     from repro_torch.launch.train import Trainer
     from repro_torch.models import model_zoo
@@ -4278,10 +4313,6 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
             f"eps_{ZAMBA_GRAD_EPS:g}": _compare_zamba_grads(
                 trainer.model, params, batch, ZAMBA_GRAD_EPS, GRAD_RTOL,
                 fault=True)}
-        if not is_trained:  # the report at the model's eps (first batch)
-            grads[key][f"eps_{tc.model.norm_eps:g}"] = _compare_zamba_grads(
-                trainer.model, params, batch, tc.model.norm_eps, math.inf,
-                host=True)
         del params
         torch.cuda.empty_cache()
     emit("train_zamba_grads", leaves=len(_leaf_names(init)),
@@ -4298,12 +4329,15 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
 
 # ---------------------------------------------------------------------------
 # deepseek-moe-16b: the flash kernels at head dim 128 and the other presets'
-# (D, G), then the MoE family served at full width and depth and trained at
-# full width, 4 of its 28 layers deep
+# (D, G), then the MoE family served at full width, 14 of its 28 layers
+# deep, and trained at full width, 4 layers deep
 # ---------------------------------------------------------------------------
 
 MOE_H, MOE_D = 16, 128  # deepseek-moe-16b: 16 heads of 128, kv 16
 MOE_TRAIN_LAYERS, MOE_B, MOE_STEPS, MOE_EVAL = 4, 8, 20, 8
+# serving depth: 14 of its 28 layers since PR 25 (for the gpt2-1.5b
+# phases; all 28, 67.5 GB of weights, in PR 23-24: host-bound, 92-142 s)
+MOE_SERVE_LAYERS = 14
 # the other presets' attention shapes (head dim, group size, kv heads):
 # llava-next-mistral-7b, qwen2-1.5b, smollm-360m and qwen3-32b
 PRESET_DG = {"llava-next-mistral-7b": (128, 4, 8), "qwen2-1.5b": (128, 6, 2),
@@ -4596,8 +4630,8 @@ def _moe_weights(n_layers: int = 0):
 
 
 def phase_engine_moe(dev: dict, fa_checked: set, fd_checked: set) -> dict:
-    """Serves deepseek-moe-16b at full width and all 28 layers (fp32, 67.5
-    GB of weights drawn on the card) in 8 slots of 576: the 16 requests of
+    """Serves deepseek-moe-16b at full width, MOE_SERVE_LAYERS deep (fp32
+    weights drawn on the card) in 8 slots of 576: the 16 requests of
     ``make_requests``, fcfs, with routing recorded.  Checks the launch
     counts (flash_attention_fwd layers x prefill calls; flash_decode_fwd
     layers x (fused + replay steps); no other kernel), that every request
@@ -4610,7 +4644,7 @@ def phase_engine_moe(dev: dict, fa_checked: set, fd_checked: set) -> dict:
     from repro_torch.models import model_zoo
     from repro_torch.serve import Replica, prefill_split
     held = torch.cuda.memory_allocated()
-    cfg, params, init_s = _moe_weights()
+    cfg, params, init_s = _moe_weights(MOE_SERVE_LAYERS)
     model = model_zoo.build_model(cfg)
     plain_model = model_zoo.build_model(cfg.replace(
         attn_backend="blockwise", decode_backend="reference"))
@@ -5172,6 +5206,405 @@ def phase_distributed(dev: dict, train_tokens_s: float, main_lengths,
                          "flash_decode_fwd": decode["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# the paper's GPT-2 1.5B at full width and depth: the flash kernels at its
+# 25 heads, training under remat "dots" (and the three remat policies side
+# by side), then serving on the trained weights; and remat "dots" on the
+# recurrent families
+# ---------------------------------------------------------------------------
+
+XL_H = 25  # gpt2-1.5b: 25 heads of 64 (48 layers, d 1600)
+# the paper's recipe at a size one card holds: global batch 8 at S 1024,
+# SLW linear from 64 (rounded to 8) over the first 4 steps, 8 steps, one
+# full-length eval
+XL_B, XL_STEPS, XL_WARMUP, XL_START, XL_EVAL = 8, 8, 4, 64, 8
+XL_REMAT_B = 4  # the remat policies side by side: one 4 x 1024 batch
+XL_REQUESTS, XL_GEN = 8, 32  # served: 8 requests, 32 greedy tokens each
+# "dots" (and "full") against "none", leaf by leaf: the recompute runs the
+# same kernels on the same inputs, so the gradients should be bit-equal;
+# fixed before the first run, any difference above this share of a leaf's
+# largest entry fails
+REMAT_RTOL = 1e-6
+FWD_KERNELS = ("flash_attention_fwd", "wkv6_fwd", "ssd_fwd")
+
+
+def xl_config():
+    from repro_torch.configs import get_arch
+    return get_arch("gpt2-1.5b")
+
+
+def xl_train_config(remat: str = "dots"):
+    """The 1.5B run: AdamW as :func:`train_config`'s, its warmup over the
+    SLW steps."""
+    from repro_torch.configs import (OptimizerConfig, SLWConfig,
+                                     TrainConfig)
+    tokens = XL_STEPS * XL_B * S_TRAIN
+    return TrainConfig(
+        model=xl_config(),
+        optimizer=OptimizerConfig(
+            lr=6e-4, schedule="token_cosine", warmup_steps=XL_WARMUP,
+            warmup_tokens=XL_WARMUP * XL_B * S_TRAIN, total_steps=XL_STEPS,
+            total_tokens=tokens),
+        slw=SLWConfig(enabled=True, pacing="linear", start_seq_len=XL_START,
+                      duration_steps=XL_WARMUP, round_multiple=8,
+                      max_buckets=12),
+        seq_len=S_TRAIN, global_batch=XL_B, seed=SEED, remat=remat,
+        eval_interval=XL_STEPS)
+
+
+def xl_requests():
+    """The XL_REQUESTS prompts of ``make_requests`` cut to their prefill
+    buckets (512, 384 and 256 tokens: no replay steps, which at 48
+    layers would take the host ~60 ms each), XL_GEN greedy tokens each."""
+    from repro_torch.launch.serve import make_requests, scheduler_config
+    from repro_torch.serve import prefill_split
+    ladder = scheduler_config(8, PROMPT_LEN, PROMPT_LEN + GEN).ladder()
+    return [dataclasses.replace(r, tokens=r.tokens[:prefill_split(
+        len(r.tokens), ladder)], max_tokens=XL_GEN) for r in make_requests(
+            xl_config(), XL_REQUESTS, PROMPT_LEN, XL_GEN, seed=SEED)]
+
+
+def phase_flash_xl(train_shapes, prefills, cache_len: int) -> tuple:
+    """The flash kernels at gpt2-1.5b's 25 heads of 64 (fp32): the forward
+    at every serving prefill and training shape, the three backward
+    kernels at every training shape, and the decode kernel at G = 1 on
+    the fused step (8 slots) and a replay row, each against its plain
+    version; times the forward at 1 x 512 and XL_B x 1024, the backward
+    kernels at XL_B x 1024 and decode on the fused step."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    errs = {}
+    for i, (b, s) in enumerate(sorted(prefills | train_shapes)):
+        key = f"{b}x{s}"
+        q, k, v = _attn_inputs(b, s, torch.float32, 5000 + i, XL_H, D)
+        errs[key] = check_attention(q, k, v, f"xl {key}")
+        if (b, s) in train_shapes:
+            do = _attn_inputs(b, s, torch.float32, 6000 + i, XL_H, D)[0]
+            o, lse = flash_attention_fwd(q, k, v)
+            errs[key] += check_attention_bwd(q, k, v, o, lse, do,
+                                             f"xl {key}")
+        del q, k, v
+    lengths = [len(r.tokens) + XL_GEN // 2 for r in xl_requests()]
+    decode = {}
+    for b, ln in ((8, lengths), (1, [cache_len - 149])):
+        key = f"float32_xl_{b}x{cache_len}"
+        decode[key] = check_decode(*_decode_inputs(
+            b, cache_len, 1, torch.float32, ln, 90 + b, XL_H, D), key)
+    torch.cuda.empty_cache()
+    timing = time_flash(XL_H, D, ((1, 512), (XL_B, S_TRAIN)), XL_B, "xl")
+    timing["decode_xl_main"] = time_decode(*_decode_inputs(
+        8, cache_len, 1, torch.float32, lengths, 9, XL_H, D),
+        "float32_xl_main")
+    torch.cuda.empty_cache()
+    emit("flash_gpt2_1p5b", shape=f"H={XL_H} D={D} fp32", max_err=errs,
+         decode_max_err=decode, timing=timing)
+    return timing, (prefills | train_shapes,
+                    {(8, cache_len), (1, cache_len)})
+
+
+def compare_remat(names, got, ref, what: str) -> dict:
+    """Gradients of one policy against another's, leaf by leaf: the
+    bit-equal leaves, and the largest difference over the leaf's largest
+    entry; fails above REMAT_RTOL."""
+    rel, equal = {}, 0
+    for name, a, r in zip(names, got, ref):
+        if torch.equal(a, r):
+            equal += 1
+            rel[name] = 0.0
+            continue
+        rel[name] = ((a - r).abs().max()
+                     / r.abs().max().clamp_min(1e-30)).item()
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= REMAT_RTOL,
+          f"{what}: gradient {worst} off by {rel[worst]} of its largest "
+          f"entry")
+    return {"leaves": len(rel), "bit_equal_leaves": equal,
+            "max_rel_err": rel[worst], "worst_leaf": worst}
+
+
+def _summed(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for name, n in c.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def _remat_grads(cfg, remat: str, params, batch) -> tuple:
+    """(gradients of one loss-and-backward pass under ``remat``, seconds,
+    peak bytes above what was allocated before, launches)."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import transforms as optim_tx
+    model = model_zoo.build_model(cfg, remat=remat)
+    leaves = optim_tx.tree_leaves(params)
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _ = model.loss(params, batch)
+        grads = steps_lib.loss_grads(loss, leaves)
+        del loss
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (grads, seconds, torch.cuda.max_memory_allocated() - base,
+            {n: f.launches for n, f in counters.items() if f.launches})
+
+
+def _remat_shape(train_shapes) -> tuple:
+    """The training (batch, S) nearest 2,048 tokens: a small batch the
+    kernels were checked at in both directions."""
+    return min(train_shapes, key=lambda bs: (abs(bs[0] * bs[1] - 2048), bs))
+
+
+def check_remat_dots(cfg, params, shape, what: str) -> dict:
+    """One loss-and-gradient pass at ``shape`` under remat "none", then
+    "dots": every gradient leaf bit-equal or within REMAT_RTOL of its
+    largest entry, and under "dots" each forward kernel launched twice as
+    often (the backward recomputes it), each backward kernel as often."""
+    from repro_torch.models import model_zoo
+    b, s = shape
+    batch = {k: torch.from_numpy(v).to("cuda").long()
+             for k, v in model_zoo.make_train_batch(SEED, cfg, b, s).items()}
+    ref, _, _, base = _remat_grads(cfg, "none", params, batch)
+    got, _, _, launches = _remat_grads(cfg, "dots", params, batch)
+    want = {n: c * (2 if n in FWD_KERNELS else 1) for n, c in base.items()}
+    check(bool(base) and launches == want,
+          f"{what} remat dots launches {launches} != {want}")
+    out = compare_remat(_leaf_names(params), got, ref, f"{what} dots")
+    del ref, got
+    torch.cuda.empty_cache()
+    return {"shape": f"{b}x{s}", "n_layers": cfg.n_layers,
+            "launches_none": base, "launches_dots": launches, **out}
+
+
+def phase_train_xl(dev: dict, checked: set) -> dict:
+    """Trains gpt2-1.5b at full width and depth through the Trainer under
+    remat "dots" (weights from a CUDA generator seeded with SEED): XL_STEPS
+    SLW steps and one full-length eval, then 2 full-length steps untraced
+    and 2 under the profiler.  Checks the plans against
+    ``predict_trajectory``, finite losses, the launch counts (each layer's
+    forward kernel twice a step, the backward recomputing it) and that
+    every (batch, S) was checked at 25 heads.  Then the remat policies
+    side by side on the trained weights, one XL_REMAT_B x 1024 batch,
+    gradients only: each one's peak memory and time, and "dots" and
+    "full" against "none" (:func:`compare_remat`).  Returns the trained
+    params for the serving phase."""
+    from repro_torch.core.regulators import predict_trajectory
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import REMATS
+    tc = xl_train_config()
+    cfg = tc.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = Trainer(tc, eval_batch=XL_EVAL, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.run()
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = cfg.n_layers
+
+    check(res.steps == XL_STEPS and not res.diverged, "xl trained 8 steps")
+    check(all(math.isfinite(x) for x in res.loss_history),
+          "xl finite losses")
+    plans = predict_trajectory(tc, XL_STEPS)
+    ran = list(zip(res.seqlen_history, res.batch_history, res.lr_history))
+    check(ran == [(p.seq_len, p.batch_size, p.lr) for p in plans],
+          "the xl run's plans are predict_trajectory's")
+    n_evals = len(res.val_ppl_history)
+    check(n_evals == 1, f"{n_evals} xl evals")
+    # remat "dots": the backward recomputes each layer's forward kernel
+    want = {n: 0 for n in counters}
+    for name in _fa_kernels():
+        want[name] = n_layers * XL_STEPS
+    want["flash_attention_fwd"] = n_layers * (2 * XL_STEPS + n_evals)
+    check(launches == want, f"xl train launches {launches} != {want}")
+    shapes = {(p.batch_size, p.seq_len) for p in plans} | {(XL_EVAL,
+                                                            S_TRAIN)}
+    check(shapes <= checked, f"xl shapes {shapes - checked} not checked")
+
+    full = [i for i, s in enumerate(res.seqlen_history) if s == S_TRAIN]
+    durations = trainer.watchdog.durations
+    full_s = [durations[i] for i in full]
+    full_tokens = sum(res.batch_history[i] * S_TRAIN for i in full)
+
+    def steps2():
+        for _ in range(2):
+            trainer.run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps2()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps2)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:8]}
+    emit("train_gpt2_1p5b", card=dev["nvidia_smi"], arch=cfg.name,
+         n_layers=n_layers, params=model_zoo.param_count(cfg),
+         remat=tc.remat, weight_init_s=init_s, steps=res.steps,
+         tokens=res.tokens, full_length_steps=len(full),
+         tokens_per_s_full_length=full_tokens / sum(full_s),
+         p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
+         seq_len=res.seqlen_history, losses=res.loss_history,
+         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         launches=launches, max_memory_allocated=peak,
+         wall_s=res.wall_time_s,
+         traced_2_full_steps={"wall_ms_untraced": wall,
+                              "device_busy_ms": busy,
+                              "device_idle_share": 1 - busy / wall,
+                              "top_kernels_ms": top})
+
+    # the remat policies side by side: the optimizer state goes first
+    params = trainer.state["params"]
+    trainer.state = None
+    del trainer
+    torch.cuda.empty_cache()
+    check((XL_REMAT_B, S_TRAIN) in checked, "the remat batch's shape")
+    batch = {k: torch.from_numpy(v).to("cuda").long()
+             for k, v in model_zoo.make_train_batch(
+                 SEED, cfg, XL_REMAT_B, S_TRAIN).items()}
+    names = _leaf_names(params)
+    policies, ref, remat_launches = {}, None, {}
+    # "none" first: the others are held against its gradients
+    for remat in ("none", *(r for r in REMATS if r != "none")):
+        want = {n: n_layers for n in _fa_kernels()}
+        want["flash_attention_fwd"] = n_layers * (1 if remat == "none" else 2)
+        # the first pass grows the allocator's cache; the second is timed
+        first_grads, first, _, first_k = _remat_grads(cfg, remat, params,
+                                                      batch)
+        del first_grads
+        check(first_k == want,
+              f"xl {remat} first pass launches {first_k} != {want}")
+        grads, seconds, above, ran_k = _remat_grads(cfg, remat, params,
+                                                    batch)
+        check(ran_k == want, f"xl {remat} launches {ran_k} != {want}")
+        policies[remat] = {"ms": seconds * 1e3, "first_pass_ms": first * 1e3,
+                           "peak_bytes_above": above,
+                           "launches_first_pass": first_k, "launches": ran_k}
+        if ref is None:
+            ref = grads
+        else:
+            policies[remat].update(compare_remat(names, grads, ref,
+                                                 f"xl {remat}"))
+        remat_launches = _summed(remat_launches, first_k, ran_k)
+        del grads
+        torch.cuda.empty_cache()
+    del ref, batch
+    torch.cuda.empty_cache()
+    emit("remat_gpt2_1p5b", card=dev["nvidia_smi"],
+         batch=f"{XL_REMAT_B}x{S_TRAIN}", rtol=REMAT_RTOL,
+         policies=policies)
+    return {"params": params, "launches": {
+        "train_gpt2_1p5b": {n: launches[n] for n in _fa_kernels()},
+        "remat_gpt2_1p5b": remat_launches}}
+
+
+def phase_serve_xl(dev: dict, params, fa_checked: set,
+                   fd_checked: set) -> dict:
+    """Serves gpt2-1.5b at full width and depth on the trained weights in
+    8 slots of 576: the XL_REQUESTS prompts of :func:`xl_requests`,
+    XL_GEN greedy tokens each, fcfs.  Checks the launch counts
+    (flash_attention_fwd layers x prefill calls, flash_decode_fwd layers x
+    (fused + replay steps), no other kernel), that every shape was
+    checked at 25 heads, and the greedy streams against a twin engine on
+    the same weight tensors with the plain backends; reports the idle
+    share of a steady decode window; fails if the phase leaves 64 MiB
+    allocated beyond the weights."""
+    from repro_torch.launch.serve import scheduler_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import Replica, prefill_split
+    held = torch.cuda.memory_allocated()
+    cfg = xl_config()
+    model = model_zoo.build_model(cfg)
+    plain_model = model_zoo.build_model(cfg.replace(
+        attn_backend="blockwise", decode_backend="reference"))
+    reqs = xl_requests()
+    cfg_s = scheduler_config(8, PROMPT_LEN, PROMPT_LEN + GEN)
+    ladder = cfg_s.ladder()
+    _serve_model(model, params, [dataclasses.replace(reqs[3],
+                                                     max_tokens=4)])
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    out = _serve_model(model, params, reqs)
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats, cache_len = out["stats"], out["engine"].cfg.cache_len
+    del out["engine"]
+    replay = _replay_steps(reqs, ladder)
+    want = {n: 0 for n in counters}
+    want["flash_attention_fwd"] = cfg.n_layers * len(reqs)
+    want["flash_decode_fwd"] = cfg.n_layers * (stats.decode_steps + replay)
+    check(launches == want, f"xl serve launches {launches} != {want}")
+    check(all(r.n_generated == XL_GEN and r.finish_reason == "length"
+              for r in out["results"]), "every xl request generated 32")
+    prefills = {(1, prefill_split(len(r.tokens), ladder)) for r in reqs}
+    check(prefills <= fa_checked,
+          f"xl prefill shapes {prefills - fa_checked} not checked")
+    decodes = {(8, cache_len)} | ({(1, cache_len)} if replay else set())
+    check(decodes <= fd_checked, f"xl decode shapes {decodes} not checked")
+    counters = _zero_counters()
+    plain = _serve_model(plain_model, params, reqs)
+    check(all(f.launches == 0 for f in counters.values()),
+          "the plain backends launched a kernel")
+    diverged, gaps = check_streams(reqs, out["results"], plain["results"],
+                                   plain["engine"], "xl")
+    plain_rates = {"decode_tok_s": plain["decode_tok_s"],
+                   "prefill_tok_s": plain["prefill_tok_s"],
+                   "p50_ms": plain["p50_s"] * 1e3}
+    del plain
+    torch.cuda.empty_cache()
+
+    # device idle share over a steady decode window: the 8 requests
+    # admitted, 6 fused steps untraced, 6 traced
+    window = Replica(model, params, cfg_s, device="cuda")
+    for r in reqs[:8]:
+        window.scheduler.submit(r)
+    while window.admit():
+        pass
+    check(len(window.scheduler.active) == 8, "the xl decode window's slots")
+    steps6 = lambda: [window.step() for _ in range(6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps6()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, names = device_profile(steps6)
+    top = {k[:60]: v for k, v in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:6]}
+    del window
+    emit("serve_gpt2_1p5b", card=dev["nvidia_smi"], arch=cfg.name,
+         n_layers=cfg.n_layers, heads=cfg.n_heads,
+         prefill_tok_s=out["prefill_tok_s"],
+         decode_tok_s=out["decode_tok_s"], p50_ms=out["p50_s"] * 1e3,
+         p95_ms=out["p95_s"] * 1e3, prefill_calls=len(reqs),
+         fused_steps=stats.decode_steps, replay_steps=replay,
+         launches=launches, max_memory_allocated=peak,
+         wall_ms=out["wall_s"] * 1e3,
+         plain_twin={**plain_rates, "diverged": diverged,
+                     "near_tie_gaps": gaps},
+         traced_decode_window={"fused_steps": 6, "live_slots": 8,
+                               "wall_ms_untraced": wall,
+                               "device_busy_ms": busy,
+                               "device_idle_share": 1 - busy / wall,
+                               "top_kernels_ms": top})
+    del model, plain_model, out
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    check(left < 2**26, f"phase serve_gpt2_1p5b left {left} bytes allocated")
+    return {"serve_gpt2_1p5b": {k: launches[k] for k in
+                                ("flash_attention_fwd", "flash_decode_fwd")}}
+
+
 def main() -> int:
     dev = phase_device()
     build = phase_build()
@@ -5245,7 +5678,8 @@ def main() -> int:
     wkv_fwd_timing, wkv_fwd_checked = phase_wkv6_fwd(
         rwkv_prefills, rwkv_train_shapes | {(RWKV_EVAL, S_TRAIN)})
     wkv_bwd_timing, wkv_bwd_checked = phase_wkv6_bwd(rwkv_train_shapes)
-    rwkv_serve = phase_engine_rwkv(dev, wkv_fwd_checked)
+    rwkv_serve = phase_engine_rwkv(dev, wkv_fwd_checked, wkv_bwd_checked,
+                                   _remat_shape(rwkv_train_shapes))
     torch.cuda.empty_cache()
     rwkv_train = phase_train_rwkv(dev, wkv_fwd_checked, wkv_bwd_checked)
     torch.cuda.empty_cache()
@@ -5260,7 +5694,8 @@ def main() -> int:
         zamba_prefills, zamba_train_shapes | {(ZAMBA_EVAL, S_TRAIN)})
     ssd_bwd_timing, ssd_bwd_checked = phase_ssd_bwd(zamba_train_shapes)
     zamba_serve = phase_engine_zamba(dev, ssd_fwd_checked, fd_checked,
-                                     pd_checked)
+                                     pd_checked, ssd_bwd_checked,
+                                     _remat_shape(zamba_train_shapes))
     torch.cuda.empty_cache()
     zamba_train = phase_train_zamba(dev, ssd_fwd_checked, ssd_bwd_checked)
     torch.cuda.empty_cache()
@@ -5277,6 +5712,17 @@ def main() -> int:
     moe_serve = phase_engine_moe(dev, d128_fa, d128_fd)
     torch.cuda.empty_cache()
     moe_train = phase_train_moe(dev, d128_fa)
+    torch.cuda.empty_cache()
+
+    xl_prefills = {(1, prefill_split(len(r.tokens), ladder))
+                   for r in xl_requests()}
+    xl_train_shapes = {(p.batch_size, p.seq_len) for p in predict_trajectory(
+        xl_train_config(), XL_STEPS)} | {(XL_EVAL, S_TRAIN),
+                                         (XL_REMAT_B, S_TRAIN)}
+    _, (xl_fa, xl_fd) = phase_flash_xl(xl_train_shapes, xl_prefills,
+                                       PROMPT_LEN + GEN)
+    xl = phase_train_xl(dev, xl_fa)
+    xl_serve = phase_serve_xl(dev, xl.pop("params"), xl_fa, xl_fd)
 
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
@@ -5287,7 +5733,7 @@ def main() -> int:
                "grads_bf16": bf16_launches, "distributed": dist_launches,
                **rwkv_serve, "train_rwkv": rwkv_train, **zamba_serve,
                "train_zamba": zamba_train, **moe_serve,
-               "train_moe": moe_train}
+               "train_moe": moe_train, **xl["launches"], **xl_serve}
     rows = [("flash_attention_fwd", "flash_attention_fwd.cu",
              "flash_attention/kernel.py:168", fa_timing["float32_1x512"]),
             ("flash_attention_bwd_preprocess", "flash_attention_bwd.cu",

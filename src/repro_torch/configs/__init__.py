@@ -1,8 +1,8 @@
 """Architecture registry of the port (``repro/configs/__init__.py``).
 
 Every preset of the reference: the ten assigned architectures and the
-paper's GPT-2 117M and GPT-3 125M replicas (the reference's gpt2-1.5b is
-an unregistered variant there too).  ``reduced`` is
+paper's GPT-2 117M and 1.5B and GPT-3 125M replicas
+(``configs/__init__.py:38-58``).  ``reduced`` is
 ``configs/__init__.py:68-91``.
 """
 from __future__ import annotations
@@ -36,6 +36,7 @@ ASSIGNED: Dict[str, ArchSpec] = {
 # the paper's own models
 PAPER: Dict[str, ArchSpec] = {
     "gpt2-117m": gpt2.SPEC_GPT2_117M,
+    "gpt2-1.5b": gpt2.SPEC_GPT2_1P5B,
     "gpt3-125m": gpt2.SPEC_GPT3_125M,
 }
 SPECS: Dict[str, ArchSpec] = {**ASSIGNED, **PAPER}

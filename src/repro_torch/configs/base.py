@@ -88,6 +88,11 @@ class ModelConfig:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
     @property
+    def is_attention_free(self) -> bool:
+        """``base.py:100-102``."""
+        return self.family == "rwkv"
+
+    @property
     def sub_quadratic(self) -> bool:
         """Whether the arch decodes at 500K context (SSM, hybrid, linear)."""
         return self.family in ("rwkv", "hybrid")

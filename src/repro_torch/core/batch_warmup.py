@@ -6,6 +6,7 @@ Start at ``start_batch`` and grow linearly in tokens to the full batch over
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -34,3 +35,14 @@ class BatchWarmup:
                                              - self.cfg.start_batch)
         return quantize_batch(raw, self.dp_size, self.cfg.start_batch,
                               self.full_batch)
+
+    def apply(self, batch: Dict[str, np.ndarray], tokens_seen: int
+              ) -> Tuple[Dict[str, np.ndarray], int]:
+        """The first ``batch_for_tokens(tokens_seen)`` rows of a host batch
+        -> (batch, its tokens: rows x seq, or rows for a 1-d leaf)
+        (``batch_warmup.py:44-50``)."""
+        b = self.batch_for_tokens(tokens_seen)
+        out = {k: v[:b] for k, v in batch.items()}
+        first = next(iter(out.values()))
+        tokens = int(np.prod(first.shape[:2])) if first.ndim >= 2 else b
+        return out, tokens

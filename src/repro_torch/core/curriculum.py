@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -92,9 +92,22 @@ class SLWCurriculum:
         if ok and st.gate_level < len(self.ladder) - 1:
             st.gate_level += 1
 
+    def apply(self, batch: Dict[str, np.ndarray], seqlen: Optional[int] = None
+              ) -> Tuple[Dict[str, np.ndarray], int]:
+        """The step's length (or ``seqlen``) applied to a host batch ->
+        (batch, tokens of the step) (``curriculum.py:116-124``)."""
+        s_t = self.seqlen_for_step() if seqlen is None else seqlen
+        return apply_seqlen(batch, s_t, self.cfg.mode)
+
     def step_complete(self, tokens_this_step: int) -> None:
         self.state.step += 1
         self.state.tokens_seen += tokens_this_step
+
+    @property
+    def at_full_length(self) -> bool:
+        """The step runs the whole text segment (``curriculum.py:
+        131-133``)."""
+        return self.seqlen_for_step() >= self.full_seq - self.prefix_tokens
 
     def state_dict(self) -> Dict:
         return dataclasses.asdict(self.state)

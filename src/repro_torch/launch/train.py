@@ -692,7 +692,8 @@ def main(argv=None) -> int:
                    help="data-parallel size for batch quantization")
     p.add_argument("--remat", default="none",
                    choices=["none", "full", "dots"],
-                   help='"dots" is not ported yet')
+                   help='activation checkpointing of each block: "full" '
+                        'recomputes it, "dots" keeps its matmul outputs')
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--eval-interval", type=int, default=50)
     p.add_argument("--ckpt-dir", default="")

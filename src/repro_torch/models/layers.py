@@ -7,6 +7,8 @@ sharding rules read (:func:`logical_axes`) and the parameter count.  Where
 the reference stacks per-layer leaves along a leading ``n_layers`` axis
 for ``lax.scan`` (logical axis ``"layers"``), the port keeps a list of
 per-layer dicts and loops over it, so its leaves have no such axis.
+:func:`remat_call` is the activation checkpointing of a layer, the
+counterpart of ``maybe_checkpoint`` (``layers.py:95-105``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as tcp
 
 from repro_torch.distributed.sharding import constrain
 
@@ -88,6 +91,45 @@ def param_count(defs: Any) -> int:
         total += math.prod(d.shape)
     _walk(defs, add)
     return total
+
+
+REMATS = ("none", "full", "dots")
+# the ops of ``checkpoint_dots_no_batch_dims``: a dot_general without batch
+# dimensions (x @ W, whatever x's leading dims) reaches aten as mm or
+# addmm; a batched one (attention scores, the MoE experts) is bmm and is
+# recomputed, as XLA recomputes it
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> tcp.CheckpointPolicy:
+    """Save the outputs of :data:`DOT_OPS` and recompute everything else.
+    The kernels' ctypes launches are no aten op, so their outputs (and the
+    ``empty`` tensors they write into) are recomputed, as XLA recomputes
+    a ``pallas_call``."""
+    return (tcp.CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    # ``dots_policy`` is looked up at each call, so a caller can wrap it
+    return tcp.create_selective_checkpoint_contexts(dots_policy)
+
+
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)`` under the activation-checkpointing policy ``remat``
+    (``layers.py:95-105``): "none" keeps every activation, "full"
+    recomputes the whole of ``fn`` in the backward, "dots" keeps the
+    matmul outputs and recomputes the rest from them.  The recompute
+    replays ``fn``'s ops in order, so ``fn`` must issue the same ops each
+    time it runs."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return tcp.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return tcp.checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_dots_context)
+    raise ValueError(f"unknown remat policy {remat!r}")
 
 
 def cache_dtypes(dtype: torch.dtype) -> Dict[str, torch.dtype]:

@@ -33,10 +33,10 @@ def model_defs(cfg: ModelConfig):
 
 
 def build_model(cfg: ModelConfig, remat: str = "full", **options):
-    """The model of ``cfg``; ``remat`` ("none" | "full") is the activation
-    checkpointing of its ``loss``; ``options`` go to the family's class
-    (``block_kv``, the blockwise-attention block of the dense and hybrid
-    families)."""
+    """The model of ``cfg``; ``remat`` ("none" | "full" | "dots") is the
+    activation checkpointing of its ``loss``; ``options`` go to the
+    family's class (``block_kv``, the blockwise-attention block of the
+    dense and hybrid families)."""
     return _family(cfg)[0](cfg=cfg, remat=remat, **options)
 
 

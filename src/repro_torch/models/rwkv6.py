@@ -21,16 +21,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain, local_call
 from repro_torch.kernels import RWKV_BACKENDS, chunk_padding, wants_kernel
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_fwd_plain
-from repro_torch.models.layers import (ParamDef, advance_pos, cache_dtypes,
-                                       cross_entropy_loss, layer_norm,
-                                       norm_def, round_up)
-from repro_torch.models.transformer import REMATS, _logits, embed_inputs
+from repro_torch.models.layers import (REMATS, ParamDef, advance_pos,
+                                       cache_dtypes, cross_entropy_loss,
+                                       layer_norm, norm_def, remat_call,
+                                       round_up)
+from repro_torch.models.transformer import _logits, embed_inputs
 
 
 def _heads(t: torch.Tensor) -> torch.Tensor:
@@ -218,8 +218,6 @@ class RWKV6LM:
     remat: str = "full"
 
     def __post_init__(self):
-        if self.remat == "dots":
-            raise NotImplementedError('remat="dots" is not ported yet')
         if self.remat not in REMATS:
             raise ValueError(f"unknown remat policy {self.remat!r}")
 
@@ -238,11 +236,7 @@ class RWKV6LM:
         x = constrain(self._embed(params, batch["tokens"]),
                       ("batch", "seq", "embed"))
         for lp in params["layers"]:
-            if self.remat == "full":
-                x = torch.utils.checkpoint.checkpoint(
-                    rwkv6_block, lp, x, cfg, use_reentrant=False)
-            else:
-                x = rwkv6_block(lp, x, cfg)
+            x = remat_call(rwkv6_block, self.remat, lp, x, cfg)
         loss, denom = cross_entropy_loss(_logits(params, x, cfg),
                                          batch["labels"],
                                          batch.get("loss_mask"),

@@ -7,9 +7,9 @@ presets with rope, RMSNorm, SwiGLU, GQA, qk-norm or QKV bias; and the two
 frontend stubs (``audio_frames``, ``vision_patches``).  A Python loop
 over the per-layer parameter list replaces ``lax.scan``.  The model runs in
 the dtype of the parameters it is given (the trainer and the engine run
-fp32).  ``remat="full"`` recomputes each block in the backward
-(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on the
-scan body); ``"none"`` keeps every activation.
+fp32).  ``remat`` checkpoints each block (``layers.remat_call``):
+``"full"`` recomputes it in the backward, ``"dots"`` keeps its matmul
+outputs, ``"none"`` keeps every activation.
 """
 from __future__ import annotations
 
@@ -18,16 +18,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain, zeros_like_act
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (ParamDef, advance_pos, apply_norm,
-                                       cross_entropy_loss, mlp_apply, mlp_def,
-                                       norm_def, round_up)
-
-REMATS = ("none", "full")
+from repro_torch.models.layers import (REMATS, ParamDef, advance_pos,
+                                       apply_norm, cross_entropy_loss,
+                                       mlp_apply, mlp_def, norm_def,
+                                       remat_call, round_up)
 
 
 def dense_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -108,8 +106,6 @@ class DenseLM:
     remat: str = "full"
 
     def __post_init__(self):
-        if self.remat == "dots":
-            raise NotImplementedError('remat="dots" is not ported yet')
         if self.remat not in REMATS:
             raise ValueError(f"unknown remat policy {self.remat!r}")
 
@@ -150,11 +146,7 @@ class DenseLM:
         x = constrain(x, ("batch", "seq", "embed"))
         auxes = []
         for lp in params["layers"]:
-            if self.remat == "full":
-                x, aux = torch.utils.checkpoint.checkpoint(
-                    self._block, lp, x, use_reentrant=False)
-            else:
-                x, aux = self._block(lp, x)
+            x, aux = remat_call(self._block, self.remat, lp, x)
             auxes.append(aux)
         logits = _logits(params, x, cfg)
         if cfg.frontend == "vision_patches" and "patch_embeds" in batch:

@@ -6,8 +6,8 @@ The shared block, one set of weights, is applied after every
 gradient is the sum over the applications.  The reference's two-level
 ``lax.scan`` (groups, then the group's layers) is a Python loop over the
 per-layer parameter list.  As ``DenseLM``, the model runs in the dtype of
-the parameters it is given; ``remat="full"`` recomputes each Mamba-2 block
-and each shared-block application in the backward.
+the parameters it is given; ``remat`` checkpoints each Mamba-2 block and
+each shared-block application (``layers.remat_call``).
 
 The decode cache is a flat dict of axis-tagged leaves, the reference's
 nested ``{"mamba": {...}}`` tree flattened: ``ssm_state``, ``conv_x``,
@@ -23,16 +23,16 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2
-from repro_torch.models.layers import (ParamDef, advance_pos, apply_norm,
-                                       cache_dtypes, cross_entropy_loss,
-                                       mlp_apply, mlp_def, norm_def, round_up)
-from repro_torch.models.transformer import REMATS, _logits, embed_inputs
+from repro_torch.models.layers import (REMATS, ParamDef, advance_pos,
+                                       apply_norm, cache_dtypes,
+                                       cross_entropy_loss, mlp_apply, mlp_def,
+                                       norm_def, remat_call, round_up)
+from repro_torch.models.transformer import _logits, embed_inputs
 
 MAMBA_LEAVES = ("ssm_state", "conv_x", "conv_b", "conv_c")
 
@@ -79,8 +79,6 @@ class Zamba2LM:
     block_kv: int = 512
 
     def __post_init__(self):
-        if self.remat == "dots":
-            raise NotImplementedError('remat="dots" is not ported yet')
         if self.remat not in REMATS:
             raise ValueError(f"unknown remat policy {self.remat!r}")
 
@@ -94,12 +92,6 @@ class Zamba2LM:
             pos = torch.zeros((), dtype=torch.int64, device=tokens.device)
         return embed_inputs(params, {"tokens": tokens}, self.cfg, pos)
 
-    def _run(self, fn, *args):
-        if self.remat == "full":
-            return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                     use_reentrant=False)
-        return fn(*args)
-
     # -- training ------------------------------------------------------------
     def loss(self, params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -109,10 +101,10 @@ class Zamba2LM:
         x = constrain(self._embed(params, batch["tokens"]),
                       ("batch", "seq", "embed"))
         for i, lp in enumerate(params["mamba_layers"]):
-            x = self._run(mamba2.mamba2_block, lp, x, cfg)
+            x = remat_call(mamba2.mamba2_block, self.remat, lp, x, cfg)
             if (i + 1) % cfg.attn_every == 0:
-                x, _ = self._run(_shared_block, params["shared"], x, cfg,
-                                 self.block_kv)
+                x, _ = remat_call(_shared_block, self.remat,
+                                  params["shared"], x, cfg, self.block_kv)
         loss, denom = cross_entropy_loss(_logits(params, x, cfg),
                                          batch["labels"],
                                          batch.get("loss_mask"),

@@ -34,8 +34,8 @@ from repro_torch.kernels import resolve_device
 from repro_torch.models import model_zoo
 from repro_torch.serve import sampling
 from repro_torch.serve.policies import make_policy
-from repro_torch.serve.scheduler import (Scheduler, SchedulerConfig,
-                                         prefill_split)
+from repro_torch.serve.scheduler import (QueueFull, Scheduler,
+                                         SchedulerConfig, prefill_split)
 from repro_torch.serve.state import SlotDecodeState
 from repro_torch.serve.types import (GenerationResult, PrefillOutcome,
                                      ReplicaTelemetry, Request)
@@ -59,6 +59,7 @@ class EngineStats:
     step_times: Deque[float] = field(
         default_factory=lambda: deque(maxlen=STEP_TIME_WINDOW))
     slot_errors: int = 0  # slots retired with reason "error"
+    shed: int = 0  # submissions refused at the bounded queue
 
     @property
     def prefill_tok_s(self) -> float:
@@ -435,6 +436,17 @@ class Replica:
         by_uid: Dict[int, GenerationResult] = {r.uid: r for r in done}
         return [by_uid[r.uid] for r in requests]
 
+    def try_submit(self, request: Request) -> bool:
+        """Streaming admission that sheds on overload
+        (``engine.py:538-548``): False, counted in ``stats.shed``, when the
+        bounded pending queue is full; an invalid request still raises."""
+        try:
+            self.scheduler.submit(request)
+            return True
+        except QueueFull:
+            self.stats.shed += 1
+            return False
+
     def take_finished(self) -> List[GenerationResult]:
         done, self.scheduler.finished = self.scheduler.finished, []
         return done
@@ -490,6 +502,7 @@ class Replica:
             "generated_tokens": s.generated_tokens,
             "admitted": s.admitted,
             "slot_errors": s.slot_errors,
+            "shed": s.shed,
             "p50_s": s.latency_percentile(50),
             "p95_s": s.latency_percentile(95),
         }

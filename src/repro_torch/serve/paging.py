@@ -97,6 +97,10 @@ class PageAllocator:
         subtracted: ``committed`` is the admission-side truth)."""
         return len(self.free_pages)
 
+    def occupancy(self) -> float:
+        """Share of the pool's pages owned (``paging.py:105-106``)."""
+        return self.pages_in_use / self.n_pages
+
     # -- reservation (admission control) ------------------------------------
     def can_reserve(self, slot: int, n_pages: int) -> bool:
         if n_pages > self.pages_per_slot:
@@ -179,7 +183,10 @@ class PagedDecodeState(SlotDecodeState):
     """``DecodeState`` over a paged KV pool and per-slot page tables.
 
     Besides the protocol: ``try_reserve`` (the admission page budget) and
-    the :class:`PageAllocator` at ``self.alloc``.  Counters:
+    the :class:`PageAllocator` at ``self.alloc``.  ``insert`` (one slot,
+    inherited) goes through :meth:`insert_many`, as the reference's
+    (``paging.py:356-365``) writes one slot through the paged scatter.
+    Counters:
     ``table_uploads`` (host-to-device copies of the page table) and
     ``refusals`` (reservations refused, each an admission that waited).
     """

@@ -147,14 +147,15 @@ POLICIES = ("fcfs", "shortest-prompt-first", "budget-packing")
 
 
 def make_policy(cfg: SchedulerConfig) -> AdmissionPolicy:
-    """The policy ``cfg.policy`` names; one instance per replica
+    """The policy ``cfg.policy`` names, or its alias "spf" / "budget"
+    (``policies.py:179-192``); one instance per replica
     (shortest-prompt-first keeps per-queue aging state)."""
     name = cfg.policy
     if name == "fcfs":
         return FCFSPolicy()
-    if name == "shortest-prompt-first":
+    if name in ("shortest-prompt-first", "spf"):
         return ShortestPromptFirstPolicy()
-    if name == "budget-packing":
+    if name in ("budget-packing", "budget"):
         return BudgetPackingPolicy(cfg.resolved_pack_budget)
     raise ValueError(
         f"unknown admission policy {name!r} (want one of {POLICIES})")

@@ -17,7 +17,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from repro_torch.serve.engine import Replica
 from repro_torch.serve.scheduler import QueueFull, SchedulerConfig
-from repro_torch.serve.types import GenerationResult, Request
+from repro_torch.serve.types import (GenerationResult, ReplicaTelemetry,
+                                     Request)
 
 OnToken = Callable[[int, int], None]
 
@@ -59,6 +60,10 @@ class Router:
         self.route = route
         self._rr = 0
         self.stats = RouterStats()
+
+    def telemetry(self) -> List[ReplicaTelemetry]:
+        """Each replica's telemetry, in replica order (``router.py:75-76``)."""
+        return [rep.telemetry() for rep in self.replicas]
 
     @property
     def busy(self) -> bool:
@@ -135,7 +140,8 @@ class Router:
     def summary(self) -> dict:
         """Fleet accounting (CLI report, metrics JSONL summary row)."""
         agg = {"generated_tokens": 0, "admitted": 0, "decode_steps": 0,
-               "prefill_s": 0.0, "decode_s": 0.0, "slot_errors": 0}
+               "prefill_s": 0.0, "decode_s": 0.0, "slot_errors": 0,
+               "replica_shed": 0}
         per = {}
         for rep in self.replicas:
             s = rep.stats
@@ -145,6 +151,7 @@ class Router:
             agg["prefill_s"] += s.prefill_s
             agg["decode_s"] += s.decode_s
             agg["slot_errors"] += s.slot_errors
+            agg["replica_shed"] += s.shed
             per[rep.name] = {
                 "generated_tokens": s.generated_tokens,
                 "admitted": s.admitted,

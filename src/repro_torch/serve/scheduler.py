@@ -164,6 +164,20 @@ class Scheduler:
         self._validate(request, self._in_flight_uids())
         self.pending.append(request)
 
+    def submit_all(self, requests) -> None:
+        """All-or-nothing admission (``scheduler.py:214-232``): the whole
+        batch fits under ``max_pending`` (else :class:`QueueFull`) and
+        validates (else ``ValueError``), or nothing is enqueued.
+        ``requests`` is read once, so a generator works."""
+        requests = list(requests)
+        if self.cfg.max_pending and \
+                len(self.pending) + len(requests) > self.cfg.max_pending:
+            raise QueueFull(
+                f"{len(requests)} requests exceed pending capacity "
+                f"{self.cfg.max_pending} ({len(self.pending)} queued)")
+        self.validate_batch(requests)
+        self.pending.extend(requests)
+
     def validate_batch(self, requests) -> None:
         """Validate a request set against in-flight uids and each other."""
         uids = self._in_flight_uids()

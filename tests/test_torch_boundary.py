@@ -4,8 +4,8 @@ fallback, and no ported-looking option that quietly does nothing.
 * With ``jax`` blocked, every ``repro_torch`` module, ``chip_smoke`` and
   the port's examples (``examples/torch_*.py``) import, and none of them
   pulls in ``repro`` or a ``repro.*`` module.
-* An option not wired into the port raises: ``--remat dots`` and
-  ``grad_compression``.
+* An option not wired into the port raises: ``grad_compression`` and an
+  unknown remat policy; ``--remat dots`` trains.
 * The entry points (the examples too) default to CUDA and raise where
   there is none.
 * On CPU tensors the kernel wrappers (flash attention, flash decode,
@@ -193,11 +193,16 @@ def test_examples_run_on_the_cpu_when_asked(capsys, name):
             else "aggressive + throttle" in out)
 
 
-def test_train_cli_refuses_what_is_not_ported():
+def test_train_cli_refuses_what_is_not_ported(capsys):
+    """``--remat dots`` trains a reduced model on the CPU; a policy the
+    reference does not have is refused."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.main(["--reduced", "--device", "cpu", "--steps", "1",
-                    "--batch", "2", "--seq", "16", "--remat", "dots"])
+    argv = ["--reduced", "--device", "cpu", "--steps", "3", "--batch", "2",
+            "--seq", "16", "--eval-interval", "0", "--remat"]
+    assert train.main(argv + ["dots"]) == 0
+    assert "done: steps=3" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        train.main(argv + ["offload"])
 
 
 def test_train_step_refuses_grad_compression():

@@ -22,6 +22,11 @@ exchange ``.npz`` files.  The mesh is (2, 2) ``("data", "model")``:
     of the JAX package's ``make_train_step`` (the default AdamW chain,
     the clip engaged), and its updated params as
     ``torch_dist_ranks.step_params_close`` holds them.
+* The same step of reduced gpt2 and reduced deepseek-moe under remat
+  "dots" (selective checkpointing replays the block's ops in order, so
+  ``constrain`` and ``local_call`` must issue the same ones when the
+  backward recomputes it), against the JAX package's "dots" step, held
+  as above.
 * Reduced gpt2 under ``fsdp`` and ``serve_tp``: the sharded prefill
   step's logits and KV cache, and two serve steps (flash decode under
   ``local_call``, heads on ``"model"`` and slots on ``"data"``) from the
@@ -45,11 +50,13 @@ from repro.optim import transforms as jtx
 
 SPAWN_TIMEOUT_S = 300
 ARCHS = ("zamba2-2.7b", "rwkv6-7b", "deepseek-moe-16b")
-GRAD_TOL = {"zamba2-2.7b": 1e-5, "rwkv6-7b": 1e-4, "deepseek-moe-16b": 1e-5}
+DOTS_ARCHS = ("gpt2-117m", "deepseek-moe-16b")  # also stepped under "dots"
+GRAD_TOL = {"zamba2-2.7b": 1e-5, "rwkv6-7b": 1e-4, "deepseek-moe-16b": 1e-5,
+            "gpt2-117m": 1e-5}
 # zero-initialised leaves, redrawn so that every gradient is non-trivial
 REDRAWN = {"zamba2-2.7b": ("a_log", "dt_bias", "'b'"),
            "rwkv6-7b": ("mix", "w_base", "w_lora_b"),
-           "deepseek-moe-16b": ()}
+           "deepseek-moe-16b": (), "gpt2-117m": ()}
 LR = 1e-3
 
 
@@ -79,37 +86,60 @@ def _params(arch, cfg, rng):
         redraw, init_params(jax.random.PRNGKey(0), cfg))
 
 
+def _reference_step(cfg, params, jbatch, remat, ref, prefix):
+    """The JAX package's loss and gradients, and one whole train step,
+    under ``remat``, into ``ref`` under ``prefix``."""
+    opt = jbase.OptimizerConfig()
+    model = build_model(cfg, dtype=jnp.float32, remat=remat)
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        model.loss, has_aux=True))(params, jbatch)
+    ref[f"{prefix}_loss"] = float(loss)
+    ref.update(_jflat(grads, f"{prefix}_grads"))
+    state = {"params": params,
+             "opt": jtx.build_optimizer(opt).init(params),
+             "step": jnp.zeros((), jnp.int32)}
+    state, metrics = jax.jit(jsteps.make_train_step(model, opt))(
+        state, jbatch, LR)
+    for key in ("loss", "grad_norm", "var_max"):
+        ref[f"{prefix}_step_{key}"] = float(metrics[key])
+    ref.update(_jflat(state["params"], f"{prefix}_step_params"))
+
+
 @pytest.fixture(scope="module")
 def models(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist_models")
     rng = np.random.default_rng(7)
-    inp, ref = {"m_archs": np.array(ARCHS)}, {}
-    opt = jbase.OptimizerConfig()
-    for arch in ARCHS:
+    dots_rng = np.random.default_rng(8)  # leaves the other draws as they were
+    inp, ref = {"m_archs": np.array(ARCHS),
+                "m_dots_archs": np.array(DOTS_ARCHS)}, {}
+    jbatches, cfgs = {}, {}
+    for arch in dict.fromkeys(ARCHS + DOTS_ARCHS):
         cfg = reduced(get_arch(arch).model)
         if cfg.family == "hybrid":  # the JAX side at its oracle backends
             cfg = cfg.replace(ssm_backend="reference",
                               decode_backend="reference")
-        params = _params(arch, cfg, rng)
-        seqs = rng.integers(0, cfg.vocab_size, (4, 41), dtype=np.int32)
+        draw = rng if arch in ARCHS else dots_rng
+        params = _params(arch, cfg, draw)
+        seqs = draw.integers(0, cfg.vocab_size, (4, 41), dtype=np.int32)
         batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
         inp.update(_jflat(params, f"{arch}_params"))
         inp[f"{arch}_tokens"] = batch["tokens"]
         inp[f"{arch}_labels"] = batch["labels"]
-        jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
-        model = build_model(cfg, dtype=jnp.float32, remat="none")
-        (loss, _), grads = jax.jit(jax.value_and_grad(
-            model.loss, has_aux=True))(params, jbatch)
-        ref[f"{arch}_loss"] = float(loss)
-        ref.update(_jflat(grads, f"{arch}_grads"))
-        state = {"params": params,
-                 "opt": jtx.build_optimizer(opt).init(params),
-                 "step": jnp.zeros((), jnp.int32)}
-        state, metrics = jax.jit(jsteps.make_train_step(model, opt))(
-            state, jbatch, LR)
-        for key in ("loss", "grad_norm", "var_max"):
-            ref[f"{arch}_step_{key}"] = float(metrics[key])
-        ref.update(_jflat(state["params"], f"{arch}_step_params"))
+        jbatches[arch] = jax.tree_util.tree_map(jnp.asarray, batch)
+        cfgs[arch] = (cfg, params)
+        if arch in ARCHS:
+            _reference_step(cfg, params, jbatches[arch], "none", ref, arch)
+    # the reference's maybe_checkpoint names XLA's dots policy by its old
+    # name, which the installed JAX may call checkpoint_dots_with_no_batch_dims
+    pol = jax.checkpoint_policies
+    with pytest.MonkeyPatch.context() as mpatch:
+        if not hasattr(pol, "checkpoint_dots_no_batch_dims"):
+            mpatch.setattr(pol, "checkpoint_dots_no_batch_dims",
+                           pol.checkpoint_dots_with_no_batch_dims,
+                           raising=False)
+        for arch in DOTS_ARCHS:
+            _reference_step(*cfgs[arch], jbatches[arch], "dots", ref,
+                            f"{arch}_dots")
     # reduced gpt2's prefill, and two decode steps from a longer cache
     cfg = reduced(get_arch("gpt2-117m").model)
     params = init_params(jax.random.PRNGKey(1), cfg)
@@ -139,41 +169,51 @@ def models(tmp_path_factory):
     return [np.load(tmp / f"out_models_r{r}.npz") for r in range(4)], ref, inp
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_model_step_matches_reference(models, arch):
+def _check_step(models, arch, tag, want):
+    """The ranks' step under ``tag`` against the reference's under
+    ``want``."""
     outs, ref, inp = models
     out = outs[0]
-    tag = f"{arch}_fsdp"
-    np.testing.assert_allclose(float(out[f"{tag}_loss"]), ref[f"{arch}_loss"],
+    np.testing.assert_allclose(float(out[f"{tag}_loss"]), ref[f"{want}_loss"],
                                rtol=1e-5)
     assert bool(out[f"{tag}_grads_on_param_placements"])
-    keys = [k for k in ref if k.startswith(f"{arch}_grads/")]
+    keys = [k for k in ref if k.startswith(f"{want}_grads/")]
     assert len(keys) >= 10
     for key in keys:
-        got = out[key.replace(f"{arch}_grads", f"{tag}_grads")]
-        want = ref[key]
-        assert np.max(np.abs(want)) > 0, key
-        assert np.max(np.abs(got - want)) <= \
-            GRAD_TOL[arch] * np.max(np.abs(want)), key
+        got = out[key.replace(f"{want}_grads", f"{tag}_grads")]
+        wanted = ref[key]
+        assert np.max(np.abs(wanted)) > 0, key
+        assert np.max(np.abs(got - wanted)) <= \
+            GRAD_TOL[arch] * np.max(np.abs(wanted)), key
     for key in ("loss", "grad_norm", "var_max"):
         np.testing.assert_allclose(float(out[f"{tag}_step_{key}"]),
-                                   ref[f"{arch}_step_{key}"], rtol=1e-5,
+                                   ref[f"{want}_step_{key}"], rtol=1e-5,
                                    err_msg=key)
-    assert ref[f"{arch}_step_grad_norm"] > 1.0  # the clip engaged
-    sfx = [k[len(f"{arch}_step_params"):] for k in ref
-           if k.startswith(f"{arch}_step_params/")]
+    assert ref[f"{want}_step_grad_norm"] > 1.0  # the clip engaged
+    sfx = [k[len(f"{want}_step_params"):] for k in ref
+           if k.startswith(f"{want}_step_params/")]
     tight = ranks.step_params_close(
         {s: out[f"{tag}_step_params{s}"] for s in sfx},
-        {s: ref[f"{arch}_step_params{s}"] for s in sfx},
-        {s: ref[f"{arch}_grads{s}"] for s in sfx},
+        {s: ref[f"{want}_step_params{s}"] for s in sfx},
+        {s: ref[f"{want}_grads{s}"] for s in sfx},
         {s: inp[f"{arch}_params{s}"] for s in sfx},
-        ref[f"{arch}_step_grad_norm"], jbase.OptimizerConfig(), LR)
-    total = sum(ref[f"{arch}_step_params{s}"].size for s in sfx)
+        ref[f"{want}_step_grad_norm"], jbase.OptimizerConfig(), LR)
+    total = sum(ref[f"{want}_step_params{s}"].size for s in sfx)
     assert tight >= 0.75 * total, (tight, total)
     # every rank saw the same whole metrics
     for other in outs[1:]:
         assert float(other[f"{tag}_step_loss"]) == float(
             out[f"{tag}_step_loss"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_model_step_matches_reference(models, arch):
+    _check_step(models, arch, f"{arch}_fsdp", arch)
+
+
+@pytest.mark.parametrize("arch", DOTS_ARCHS)
+def test_sharded_dots_step_matches_reference(models, arch):
+    _check_step(models, arch, f"{arch}_dots", f"{arch}_dots")
 
 
 @pytest.mark.parametrize("rule_set", ["fsdp", "serve_tp"])

@@ -124,10 +124,10 @@ def _adamw_update(inp, rules, cfg, out):
                                     tx_lib.tree_leaves(state["params"])])
 
 
-def _model_step(inp, rules, cfg, out, tag, src="b"):
-    """Loss and gradients of one sharded step, and the whole step's
-    metrics and updated params, from the params and batch under ``src``
-    in ``inp``."""
+def _model_step(inp, rules, cfg, out, tag, src="b", remat="full"):
+    """Loss and gradients of one sharded step under ``remat``, and the
+    whole step's metrics and updated params, from the params and batch
+    under ``src`` in ``inp``."""
     from repro_torch.bridge import params_from_numpy, params_to_numpy
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.distributed.sharding import gather_params, use_rules
@@ -135,7 +135,7 @@ def _model_step(inp, rules, cfg, out, tag, src="b"):
     from repro_torch.models import model_zoo
     from repro_torch.optim import transforms as tx_lib
 
-    model = model_zoo.build_model(cfg, remat="full")
+    model = model_zoo.build_model(cfg, remat=remat)
     params = params_from_numpy(unflat(inp, f"{src}_params"), cfg, CPU)
     batch = {k: torch.from_numpy(inp[f"{src}_{k}"]).long()
              for k in ("tokens", "labels")}
@@ -362,6 +362,10 @@ def run_models(rank, world, tmp):
             _model_step(inp, ShardingRules.make(mesh, "fsdp"),
                         reduced(get_arch(str(arch))), out, f"{arch}_fsdp",
                         src=str(arch))
+        for arch in inp["m_dots_archs"]:  # selective checkpointing
+            _model_step(inp, ShardingRules.make(mesh, "fsdp"),
+                        reduced(get_arch(str(arch))), out, f"{arch}_dots",
+                        src=str(arch), remat="dots")
         for rule_set in ("fsdp", "serve_tp"):
             _serve(inp, ShardingRules.make(mesh, rule_set), out,
                    f"s_{rule_set}")
