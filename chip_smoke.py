@@ -1439,7 +1439,7 @@ def phase_train(dev: dict, checked: set) -> dict:
          tokens_per_s_full_length=full_tokens / sum(full_s),
          p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
          first_loss=res.loss_history[0], last_loss=res.loss_history[-1],
-         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         val_ppl=res.val_ppl_history,
          launches=launches, max_memory_allocated=peak,
          wall_s=res.wall_time_s,
          traced_3_full_steps={"wall_ms_untraced": wall,
@@ -3687,7 +3687,7 @@ def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
          tokens_per_s_full_length=full_tokens / sum(full_s),
          p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
          first_loss=res.loss_history[0], last_loss=res.loss_history[-1],
-         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         val_ppl=res.val_ppl_history,
          launches=launches, max_memory_allocated=peak,
          wall_s=res.wall_time_s,
          traced_3_full_steps={"wall_ms_untraced": wall,
@@ -4287,7 +4287,7 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
          tokens_per_s_full_length=full_tokens / sum(full_s),
          p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
          first_loss=res.loss_history[0], last_loss=res.loss_history[-1],
-         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         val_ppl=res.val_ppl_history,
          launches=launches, max_memory_allocated=peak,
          wall_s=res.wall_time_s,
          traced_2_full_steps={"wall_ms_untraced": wall,
@@ -4867,7 +4867,7 @@ def phase_train_moe(dev: dict, fa_checked: set) -> dict:
          tokens_per_s_full_length=full_tokens / sum(full_s),
          p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
          first_loss=res.loss_history[0], last_loss=res.loss_history[-1],
-         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         val_ppl=res.val_ppl_history,
          launches=launches, max_memory_allocated=peak,
          wall_s=res.wall_time_s,
          router_per_step={"keys": ["load_balance", "router_z",
@@ -5456,7 +5456,7 @@ def phase_train_xl(dev: dict, checked: set) -> dict:
          tokens_per_s_full_length=full_tokens / sum(full_s),
          p50_step_ms_full_length=float(np.median(full_s)) * 1e3,
          seq_len=res.seqlen_history, losses=res.loss_history,
-         val_ppl=res.val_ppl_history, n_compiles=res.n_compiles,
+         val_ppl=res.val_ppl_history,
          launches=launches, max_memory_allocated=peak,
          wall_s=res.wall_time_s,
          traced_2_full_steps={"wall_ms_untraced": wall,

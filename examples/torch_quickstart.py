@@ -57,8 +57,7 @@ def main(argv=None):
 
     res = train(tc, quiet=False, device=args.device)
     print("\n== quickstart summary ==")
-    print(f"steps={res.steps} tokens={res.tokens} "
-          f"shapes={res.n_compiles} (bounded by the bucket ladder)")
+    print(f"steps={res.steps} tokens={res.tokens}")
     print(f"seqlen schedule: {res.seqlen_history[0]} -> "
           f"{res.seqlen_history[-1]}")
     print(f"batch schedule:  {res.batch_history[0]} -> "

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import GNSConfig, ModelConfig, OptimizerConfig
+from repro_torch.core import trace
 from repro_torch.core.telemetry import LeafGroups, leaf_groups, leaf_sq_norms
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.compat import (distribute_tensor, is_dtensor)
@@ -135,6 +136,12 @@ def _scale_grads(grads: List[torch.Tensor], grad_scale: Optional[Any],
             _vector(grad_scale, grads[0].device)))
 
 
+def _summed(name: str) -> bool:
+    """Whether a metric sums over shards (the tokens, a tracer counter)
+    rather than taking their token-weighted mean."""
+    return name == "tokens" or name.startswith(trace.METRIC_PREFIX)
+
+
 def sharded_grads(model, params, batch: Dict[str, torch.Tensor], k: int,
                   grad_scale: Optional[Any] = None,
                   groups: Optional[LeafGroups] = None,
@@ -142,11 +149,11 @@ def sharded_grads(model, params, batch: Dict[str, torch.Tensor], k: int,
     """``(grads, metrics, leaf_small)`` of ``k`` emulated shards of
     ``batch`` (contiguous row groups): the full-batch gradient (a list in
     ``tree_leaves`` order) and metrics as the token-weighted shard means
-    (``tokens`` summed), and the per-group mean over the shards of ``sum
-    g^2`` (``steps.py:92-124``).  ``grad_scale`` multiplies each shard's
-    gradient groups first, so the measurement sees what the chain sees.
-    ``axes`` (the params' logical axes) gathers sharded params for compute
-    under the active rules."""
+    (``tokens`` and the tracer's counters summed), and the per-group mean
+    over the shards of ``sum g^2`` (``steps.py:92-124``).  ``grad_scale``
+    multiplies each shard's gradient groups first, so the measurement sees
+    what the chain sees.  ``axes`` (the params' logical axes) gathers
+    sharded params for compute under the active rules."""
     leaves = optim_tx.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -156,8 +163,11 @@ def sharded_grads(model, params, batch: Dict[str, torch.Tensor], k: int,
     sums: Dict[str, torch.Tensor] = {}
     for i in range(k):
         shard = {key: v[i * rows:(i + 1) * rows] for key, v in batch.items()}
-        loss, metrics = model.loss(shd.gather_params(params, axes), shard)
-        grads = loss_grads(loss, leaves)
+        with trace.span("step.forward"):
+            loss, metrics = model.loss(shd.gather_params(params, axes),
+                                       shard)
+        with trace.span("step.backward"):
+            grads = loss_grads(loss, leaves)
         with torch.no_grad():
             _scale_grads(grads, grad_scale, groups)
             sq = leaf_sq_norms(grads, groups)
@@ -172,13 +182,13 @@ def sharded_grads(model, params, batch: Dict[str, torch.Tensor], k: int,
             else:
                 torch._foreach_add_(acc, grads)
             for name, v in metrics.items():
-                v = v.detach()
-                add = v if name == "tokens" else w * v.float()
+                v = v.detach() if torch.is_tensor(v) else v
+                add = v if _summed(name) else w * v.float()
                 sums[name] = add if name not in sums else sums[name] + add
         del grads, loss, metrics
     denom = total.clamp_min(1.0)
     torch._foreach_div_(acc, denom)
-    out = {name: (v if name == "tokens" else v / denom)
+    out = {name: (v if _summed(name) else v / denom)
            for name, v in sums.items()}
     return acc, out, small / k
 
@@ -250,20 +260,24 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
                             sketch_dim))
                     gns_tel["leaf_gns_sketch"] = torch.stack(sketches)
         else:
-            loss, metrics = model.loss(shd.gather_params(params, axes),
-                                       batch)
-            grads = loss_grads(loss, leaves)
+            with trace.span("step.forward"):
+                loss, metrics = model.loss(shd.gather_params(params, axes),
+                                           batch)
+            with trace.span("step.backward"):
+                grads = loss_grads(loss, leaves)
             with torch.no_grad():
                 _scale_grads(grads, grad_scale, groups)
-            metrics = {k_: v.detach() for k_, v in metrics.items()}
+            metrics = {k_: v.detach() if torch.is_tensor(v) else v
+                       for k_, v in metrics.items()}
         with torch.no_grad():
             hyper = {"lr": lr, "clip_scale": clip_scale}
             if leaf_lr is not None:
                 hyper["leaf_lr_scale"] = _vector(leaf_lr, leaves[0].device)
-            updates, new_opt, telemetry = tx.update(
-                optim_tx.tree_unflatten(params, grads), state["opt"],
-                params, hyper)
-            new_params = optim_tx.apply_updates(params, updates)
+            with trace.span("step.optimizer", device=True):
+                updates, new_opt, telemetry = tx.update(
+                    optim_tx.tree_unflatten(params, grads), state["opt"],
+                    params, hyper)
+                new_params = optim_tx.apply_updates(params, updates)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         return new_state, {**metrics, **telemetry, **gns_tel, "lr": lr}

@@ -72,6 +72,7 @@ from repro_torch.configs.base import (BatchWarmupConfig, GNSConfig,
                                       OptimizerConfig, RegulatorSpec,
                                       SLWConfig, TrainConfig)
 from repro_torch.core import telemetry as telemetry_lib
+from repro_torch.core import trace
 from repro_torch.core.recovery import (RecoveryConfig, RecoveryHook,
                                        RecoveryRegulator, RollbackController)
 from repro_torch.core.regulators import (ControllerState, RegulatorStack,
@@ -107,8 +108,6 @@ class TrainResult:
     val_ppl_history: List[Tuple[int, float]] = field(default_factory=list)
     tracker_summary: Dict[str, float] = field(default_factory=dict)
     watchdog_summary: Dict[str, float] = field(default_factory=dict)
-    # distinct batch shapes the loop ran (the reference's jit compiles)
-    n_compiles: int = 0
     restored_from_step: Optional[int] = None
     # divergence-aware recovery accounting (core.recovery)
     rollbacks: int = 0
@@ -354,7 +353,6 @@ class Trainer:
         self.stopping = False
         self._drain_requested = False
         self._last = StepTelemetry()
-        self._seen_shapes = set()
         # set by the fault injector (grad_spike) for the next step only
         self.fault_injector = fault_injector
         self._pending_grad_fault: Optional[Tuple[float, str]] = None
@@ -457,19 +455,25 @@ class Trainer:
 
     # -- one training step ---------------------------------------------------
     def run_step(self) -> Tuple[StepTelemetry, StepPlan, Dict[str, float]]:
+        """One step: plan, batch, the train step, the one host transfer,
+        observe.  Each phase is a span of ``core.trace`` (off unless
+        tracing), with the step's rows and length as counters."""
+        with trace.span("trainer.step", step=self.step):
+            return self._run_step()
+
+    def _run_step(self) -> Tuple[StepTelemetry, StepPlan, Dict[str, float]]:
         tele = dataclasses.replace(self._last, step=self.step,
                                    tokens_seen=self.tokens_seen)
-        plan = self.stack.plan(tele)
+        with trace.span("trainer.plan"):
+            plan = self.stack.plan(tele)
         # the recovery regulator's data offset skips a data window the
         # rollback controller blamed for a divergence
         offset = (self._recovery_reg.data_offset
                   if self._recovery_reg is not None else 0)
-        batch = self.pipeline.batch_at(self.step + offset)
-        batch, tokens_step = self.stack.apply(batch, plan)
-        shape_key = tuple(sorted((k, v.shape) for k, v in batch.items()))
-        if shape_key not in self._seen_shapes:
-            self._seen_shapes.add(shape_key)
-            self.result.n_compiles += 1
+        with trace.span("trainer.batch"):
+            batch = self.pipeline.batch_at(self.step + offset)
+        with trace.span("trainer.apply"):
+            batch, tokens_step = self.stack.apply(batch, plan)
         # the runtime vectors go in only while active, so a clean step is
         # the step without them: a grad_spike fault's one-step multiplier
         # on the raw per-leaf gradients, the per-leaf LR backoff
@@ -484,27 +488,37 @@ class Trainer:
                 and self._recovery_reg.leaf_lr_scales:
             extra["leaf_lr"] = self._recovery_reg.leaf_lr_vector(
                 self.leaf_labels)
+        with trace.span("trainer.to_device"):
+            dev_batch = self.to_device(batch)
         # the reference hands the step np.float32 scalars
-        self.state, out = self.step_fn(
-            self.state, self.to_device(batch), float(np.float32(plan.lr)),
-            float(np.float32(plan.grad_clip_scale)), **extra)
+        with trace.span("train_step"):
+            self.state, out = self.step_fn(
+                self.state, dev_batch, float(np.float32(plan.lr)),
+                float(np.float32(plan.grad_clip_scale)), **extra)
         # one transfer: the scalars as floats, the per-leaf vectors apart
-        metrics, per_leaf = telemetry_lib.split_metrics(out)
-        loss = metrics["loss"]
-        ratio = (self.tracker.update(loss) if math.isfinite(loss)
-                 else float("inf"))
-        nan = float("nan")
-        post = dataclasses.replace(
-            tele, loss=loss, loss_ratio=ratio, grad_norm=metrics["grad_norm"],
-            grad_norm_clipped=metrics["grad_norm_clipped"],
-            var_max=metrics["var_max"], var_l1=metrics["var_l1"],
-            gns_small_sq=metrics.get("gns_small_sq", nan),
-            gns_big_sq=metrics.get("gns_big_sq", nan),
-            gns_b_small=metrics.get("gns_b_small", nan),
-            gns_b_big=metrics.get("gns_b_big", nan),
-            per_leaf=per_leaf,
-            leaf_labels=self.leaf_labels if per_leaf is not None else ())
-        self.stack.observe(post, tokens_step)
+        with trace.span("trainer.sync"):
+            metrics, per_leaf = telemetry_lib.split_metrics(out)
+        for k in [k for k in metrics if k.startswith(trace.METRIC_PREFIX)]:
+            trace.count(k[len(trace.METRIC_PREFIX):], metrics.pop(k))
+        trace.count("rows", plan.batch_size)
+        trace.count("seq", plan.seq_len)
+        with trace.span("trainer.observe"):
+            loss = metrics["loss"]
+            ratio = (self.tracker.update(loss) if math.isfinite(loss)
+                     else float("inf"))
+            nan = float("nan")
+            post = dataclasses.replace(
+                tele, loss=loss, loss_ratio=ratio,
+                grad_norm=metrics["grad_norm"],
+                grad_norm_clipped=metrics["grad_norm_clipped"],
+                var_max=metrics["var_max"], var_l1=metrics["var_l1"],
+                gns_small_sq=metrics.get("gns_small_sq", nan),
+                gns_big_sq=metrics.get("gns_big_sq", nan),
+                gns_b_small=metrics.get("gns_b_small", nan),
+                gns_b_big=metrics.get("gns_b_big", nan),
+                per_leaf=per_leaf,
+                leaf_labels=self.leaf_labels if per_leaf is not None else ())
+            self.stack.observe(post, tokens_step)
         self.step += 1
         self.tokens_seen += tokens_step
         self._last = post
@@ -730,7 +744,7 @@ def main(argv=None) -> int:
                 dp_size=args.dp_size, hooks=hooks, recovery=recovery,
                 fault_injector=injector, device=args.device)
     print(f"\ndone: steps={res.steps} tokens={res.tokens} "
-          f"diverged={res.diverged} compiles={res.n_compiles}")
+          f"diverged={res.diverged}")
     if res.restored_from_step is not None:
         print(f"resumed from the step-{res.restored_from_step} checkpoint")
     print("stability:", res.tracker_summary)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace
 from repro_torch.distributed.sharding import constrain, local_call
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (ParamDef, mlp_apply, mlp_def,
@@ -30,6 +31,10 @@ from repro_torch.models.layers import (ParamDef, mlp_apply, mlp_def,
 from repro_torch.models.transformer import DenseLM
 
 AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
+# the tracer's counters a training forward adds while it records, summed
+# over the layers: top-k assignments, those inside the capacity, slots
+COUNTER_KEYS = tuple(trace.METRIC_PREFIX + k for k in
+                     ("moe.assigned", "moe.kept", "moe.slots"))
 Aux = Optional[Dict[str, torch.Tensor]]
 
 
@@ -110,16 +115,19 @@ def _dispatch(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
     empty slot reads a zero row appended to x)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    r = route(router, x, cfg)
-    c = r.c
-    inv = torch.full((b, e * c + 1), s * k, dtype=torch.int64,
-                     device=x.device)
-    inv.scatter_(1, r.dest, torch.arange(s * k, device=x.device)
-                 .expand(b, s * k))
-    # (B, E*C): the token in each slot, s (the zero row) where empty
-    tok = inv[:, :e * c] // k
-    buf = F.pad(x, (0, 0, 0, 1)).gather(1, tok[..., None].expand(-1, -1, d))
-    w = r.gate.reshape(b, s * k, 1).to(x.dtype)
+    with trace.span("moe.route", device=True):
+        r = route(router, x, cfg)
+    with trace.span("moe.dispatch", device=True):
+        c = r.c
+        inv = torch.full((b, e * c + 1), s * k, dtype=torch.int64,
+                         device=x.device)
+        inv.scatter_(1, r.dest, torch.arange(s * k, device=x.device)
+                     .expand(b, s * k))
+        # (B, E*C): the token in each slot, s (the zero row) where empty
+        tok = inv[:, :e * c] // k
+        buf = F.pad(x, (0, 0, 0, 1)).gather(
+            1, tok[..., None].expand(-1, -1, d))
+        w = r.gate.reshape(b, s * k, 1).to(x.dtype)
     return (buf.reshape(b, e, c, d), r.dest, w, r.probs,
             torch.logsumexp(r.logits, dim=-1), r.onehot, r.keep)
 
@@ -160,14 +168,16 @@ def moe_ffn_rowlocal(params, x: torch.Tensor, cfg: ModelConfig,
          (batch_axis, None), rows, (batch_axis, None)))
     buf_axes = (batch_axis, "experts", None, None)
     buf = constrain(buf, buf_axes)
-    xb = buf.transpose(0, 1).reshape(e, b * c, d)
-    h = F.silu(torch.bmm(xb, params["w_gate"])) * torch.bmm(
-        xb, params["w_up"])
-    y_buf = torch.bmm(h, params["w_down"]).reshape(e, b, c, d)
-    y_buf = constrain(y_buf.transpose(0, 1), buf_axes)
-    y = local_call(functools.partial(_combine, k=k), (y_buf, dest, w),
-                   ((batch_axis, None, None, None), (batch_axis, None),
-                    rows), (rows,))
+    with trace.span("moe.experts"):
+        xb = buf.transpose(0, 1).reshape(e, b * c, d)
+        h = F.silu(torch.bmm(xb, params["w_gate"])) * torch.bmm(
+            xb, params["w_up"])
+        y_buf = torch.bmm(h, params["w_down"]).reshape(e, b, c, d)
+        y_buf = constrain(y_buf.transpose(0, 1), buf_axes)
+    with trace.span("moe.combine", device=True):
+        y = local_call(functools.partial(_combine, k=k), (y_buf, dest, w),
+                       ((batch_axis, None, None, None), (batch_axis, None),
+                        rows), (rows,))
     if cfg.n_shared_experts:
         y = y + mlp_apply(params["shared"], x, "swiglu")
     if not with_aux:
@@ -179,6 +189,8 @@ def moe_ffn_rowlocal(params, x: torch.Tensor, cfg: ModelConfig,
         "router_z": lse.square().mean(),
         "dropped_frac": 1.0 - keep.float().mean(),
     }
+    if trace.enabled():
+        aux.update(zip(COUNTER_KEYS, (b * s * k, keep.sum(), b * e * c)))
     return y, aux
 
 
@@ -233,4 +245,6 @@ class MoELM(DenseLM):
                 for key in AUX_KEYS}
         total = (loss + cfg.router_aux_coef * mean["load_balance"]
                  + cfg.router_z_coef * mean["router_z"])
-        return total, {"loss": loss, "tokens": denom, **mean}
+        counts = {key: sum(a[key] for a in auxes)
+                  for key in COUNTER_KEYS if key in auxes[0]}
+        return total, {"loss": loss, "tokens": denom, **mean, **counts}

@@ -12,7 +12,8 @@ data-dependent) carried over by ``bridge``:
   every page comes back, and a request migrated mid-flight in either
   direction finishes as it would have in place;
 * an 8-step trainer run with SLW and batch warmup from one transferred
-  state: plans and ``n_compiles`` equal, losses and ``var_max`` within
+  state: plans and distinct batch shapes (the reference's ``n_compiles``)
+  equal, losses and ``var_max`` within
   1e-4 relative (fp32 Adam steps amplify last-digit gradient differences
   a little per step);
 * the serving and training CLIs run ``--arch rwkv6-7b`` on the CPU.
@@ -191,7 +192,9 @@ def test_trainer_matches_reference(jx):
                                r.lr_history))
     assert plans(got) == plans(ref)
     assert len(set(ref.seqlen_history)) >= 3 and min(ref.batch_history) < 4
-    assert got.n_compiles == ref.n_compiles
+    # the reference's jit compiles: one a distinct (batch, seq_len) shape
+    assert len(set(zip(got.batch_history, got.seqlen_history))) \
+        == ref.n_compiles
     for key in ("loss_history", "var_max_history"):
         np.testing.assert_allclose(getattr(got, key), getattr(ref, key),
                                    rtol=1e-4, err_msg=key)

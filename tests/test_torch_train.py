@@ -19,8 +19,9 @@
   Function with the plain versions.  The port's remat="full" gives the
   gradients of "none" within 1e-6.
 * Trainer: 8 steps of both trainers from one transferred state, with SLW
-  and batch warmup: plans and ``n_compiles`` equal; losses, ``var_max``
-  and validation perplexities within 1e-4 relative (fp32 Adam steps
+  and batch warmup: plans and distinct batch shapes (the reference's
+  ``n_compiles``) equal; losses, ``var_max`` and validation perplexities
+  within 1e-4 relative (fp32 Adam steps
   amplify the gradients' last-digit differences a little per step).
 """
 import dataclasses
@@ -309,7 +310,9 @@ def test_trainer_matches_reference():
                                r.lr_history))
     assert plans(got) == plans(ref)
     assert len(set(ref.seqlen_history)) >= 3 and min(ref.batch_history) < 4
-    assert got.n_compiles == ref.n_compiles
+    # the reference's jit compiles: one a distinct (batch, seq_len) shape
+    assert len(set(zip(got.batch_history, got.seqlen_history))) \
+        == ref.n_compiles
     for key in ("loss_history", "var_max_history"):
         np.testing.assert_allclose(getattr(got, key), getattr(ref, key),
                                    rtol=1e-4, err_msg=key)
