@@ -126,6 +126,11 @@ weights from a seed:
   rwkv6-7b and zamba2-2.7b serving phases end with one loss-and-gradient
   pass under remat "none" and "dots" on their weights (``remat_dots_*``:
   gradients bit-equal, the forward kernels' launches doubled).
+* the fused AdamW kernel (phase ``fused_adamw``): one step of the default
+  chain's fused route over every parameter leaf of deepseek-moe-16b's
+  benchmark stage (4 layers, 2.771 B parameters) and of gpt2-1.5b (1.559
+  B), timed against its bound (8 N x 4 bytes at 3.35 TB/s) and the chain
+  it replaces, with the memory each allocates beyond the state.
 
 A NaN planted in q, k or v must leave the flash forward and backward
 kernels' and the two decode kernels' outputs non-finite wherever their
@@ -1368,6 +1373,24 @@ def _fa_kernels():
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
 
 
+def _adamw():
+    from repro_torch.kernels.fused_adamw import fused_adamw
+    return fused_adamw
+
+
+def _train_kernels():
+    """The counters a training phase resets and reads: the flash-attention
+    kernels' and the fused AdamW kernel's."""
+    return {**_fa_kernels(), "fused_adamw": _adamw()}
+
+
+def _fused_launches(tc, steps: int) -> int:
+    """Launches of the fused AdamW kernel in ``steps`` optimizer steps of
+    ``tc``: one a step where its chain has the fused route, else none."""
+    from repro_torch.optim.transforms import build_optimizer
+    return steps if build_optimizer(tc.optimizer).fused is not None else 0
+
+
 def _clone_state(state):
     from repro_torch.optim.transforms import tree_map
     return tree_map(lambda t: t.detach().clone(), state)
@@ -1382,7 +1405,7 @@ def phase_train(dev: dict, checked: set) -> dict:
     tc = train_config()
     trainer = Trainer(tc, eval_batch=EVAL_BATCH, device="cuda")
     init = _clone_state(trainer.state)
-    kernels = _fa_kernels()
+    kernels = _train_kernels()
     for f in kernels.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1399,8 +1422,8 @@ def phase_train(dev: dict, checked: set) -> dict:
     check(ran == plans, "the executed plans are predict_trajectory's")
     n_evals = len(res.val_ppl_history)
     check(n_evals == 1, f"{n_evals} evals")
-    want = {name: n_layers * TRAIN_STEPS for name in kernels}
-    want["flash_attention_fwd"] += n_layers * n_evals
+    want = _want_launches(n_layers, TRAIN_STEPS, n_evals,
+                          _fused_launches(tc, TRAIN_STEPS))
     check(launches == want, f"launches {launches} != {want}")
     shapes = {(b, s) for s, b, _ in plans} | {(EVAL_BATCH, S_TRAIN)}
     check(shapes <= checked, f"shapes {shapes - checked} not checked")
@@ -1514,9 +1537,13 @@ def phase_train_parity(train: dict) -> None:
         torch.cuda.empty_cache()
     emit("train_grads", leaves=len(rel), rtol=GRAD_RTOL, batches=grads)
     before = {name: f.launches for name, f in kernels.items()}
+    adamw = _adamw().launches
     plain = trainer.run(max_steps=PARITY_STEPS)
     check({name: f.launches for name, f in kernels.items()} == before,
           "the blockwise run launched a flash-attention kernel")
+    adamw = _adamw().launches - adamw
+    check(adamw == _fused_launches(tc, PARITY_STEPS),
+          f"the blockwise run launched the fused AdamW kernel {adamw} times")
     ref = train["result"]
     n = PARITY_STEPS
     check(plain.seqlen_history == ref.seqlen_history[:n]
@@ -1601,9 +1628,14 @@ def _run_shapes(res) -> set:
         (EVAL_BATCH, S_TRAIN)}
 
 
-def _want_launches(n_layers: int, steps: int, evals: int) -> dict:
+def _want_launches(n_layers: int, steps: int, evals: int,
+                   fused: int) -> dict:
+    """The :func:`_train_kernels` counts of ``steps`` training passes and
+    ``evals`` evals of ``n_layers`` layers and ``fused`` fused AdamW
+    steps."""
     want = {name: n_layers * steps for name in _fa_kernels()}
     want["flash_attention_fwd"] += n_layers * evals
+    want["fused_adamw"] = fused
     return want
 
 
@@ -1622,11 +1654,11 @@ def phase_paper(dev: dict, checked: set) -> dict:
         def on_run_end(self, tr):
             self.params = tr.state["params"]
 
-    kernels = _fa_kernels()
+    kernels = _train_kernels()
     n_layers = train_config().model.n_layers
     for f in kernels.values():
         f.launches = 0
-    arms, results, steps, evals = {}, {}, 0, 0
+    arms, results, steps, evals, fused = {}, {}, 0, 0, 0
     keep = KeepParams()
     for name, tc in paper_arms().items():
         hooks = [keep] if name == "slw_4x" else None
@@ -1634,6 +1666,7 @@ def phase_paper(dev: dict, checked: set) -> dict:
                                      hooks=hooks)
         steps += res.steps
         evals += len(res.val_ppl_history)
+        fused += _fused_launches(tc, res.steps)
         check(res.steps == PAPER_STEPS, f"{name}: {res.steps} steps")
         check(_run_shapes(res) <= checked, f"{name}: shapes "
               f"{_run_shapes(res) - checked} not checked")
@@ -1691,8 +1724,9 @@ def phase_paper(dev: dict, checked: set) -> dict:
               f"probe: shapes {_run_shapes(res) - checked} not checked")
         steps += res.steps
         evals += len(res.val_ppl_history)
+        fused += _fused_launches(probe_base(), res.steps)
     launches = {name: f.launches for name, f in kernels.items()}
-    want = _want_launches(n_layers, steps, evals)
+    want = _want_launches(n_layers, steps, evals, fused)
     check(launches == want, f"paper launches {launches} != {want}")
     probe_tokens = sum(res.tokens for res in probes)
     emit("paper", card=dev["nvidia_smi"], steps=PAPER_STEPS, lr=PAPER_LR,
@@ -1730,7 +1764,7 @@ def phase_checkpoint(dev: dict, paper_out: dict, checked: set) -> dict:
                                                          TrainSupervisor)
     from repro_torch.launch.train import Trainer
 
-    kernels = _fa_kernels()
+    kernels = _train_kernels()
     for f in kernels.values():
         f.launches = 0
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1799,7 +1833,8 @@ def phase_checkpoint(dev: dict, paper_out: dict, checked: set) -> dict:
             tree_leaves(paper_out["slw_4x_params"])))
         # the steps run: CKPT_FAIL before the crash, n after, one eval
         want = _want_launches(train_config().model.n_layers,
-                              CKPT_FAIL + n, len(res.val_ppl_history))
+                              CKPT_FAIL + n, len(res.val_ppl_history),
+                              _fused_launches(tc, CKPT_FAIL + n))
         check(launches == want, f"checkpoint launches {launches} != {want}")
         steps_saved = sorted(s for s, _ in saves)
         check(steps_saved == [10, 20, 30], f"saved at {steps_saved}")
@@ -2021,7 +2056,7 @@ def phase_telemetry_gns(dev: dict, checked: set, train_tokens_s: float
             self.rows.append((tele, plan, None if crit is None else (
                 crit.est.b_noise, crit.batch)))
 
-    kernels = _fa_kernels()
+    kernels = _train_kernels()
     n_layers = train_config().model.n_layers
     total = {name: 0 for name in kernels}
     out = {}
@@ -2045,8 +2080,8 @@ def phase_telemetry_gns(dev: dict, checked: set, train_tokens_s: float
         # each forward is one launch of each kernel a layer: k shards a
         # GNS step, one pass otherwise, and the eval's forward
         passes = sum(b // _shard_rows(tc.gns, b) for b in res.batch_history)
-        want = {k: n_layers * passes for k in kernels}
-        want["flash_attention_fwd"] += n_layers
+        want = _want_launches(n_layers, passes, 1,
+                              _fused_launches(tc, res.steps))
         check(launches == want, f"{name}: launches {launches} != {want}")
         plans = [(p.seq_len, p.batch_size, p.lr)
                  for p in predict_trajectory(tc, steps)]
@@ -2386,12 +2421,15 @@ def _first_pass(rows) -> dict:
     return out
 
 
-def _arm_common(name, res, launches, peak, train_peak, checked, passes=None):
-    """The checks every arm shares: launch counts, checked shapes, memory."""
+def _arm_common(name, tc, res, launches, peak, train_peak, checked,
+                passes=None):
+    """The checks every arm of ``tc`` shares: launch counts, checked
+    shapes, memory."""
     n_layers = train_config().model.n_layers
     executed = len(res.loss_history)
     want = _want_launches(n_layers, executed if passes is None else passes,
-                          len(res.val_ppl_history))
+                          len(res.val_ppl_history),
+                          _fused_launches(tc, executed))
     check(launches == want, f"recovery {name}: launches {launches} != {want}")
     check(peak <= PEAK_SLACK * train_peak,
           f"recovery {name}: peak {peak} > {PEAK_SLACK} x train's {train_peak}")
@@ -2439,7 +2477,7 @@ def _recovery_matrix(checked, train_peak) -> dict:
                      max_retries=RECOVERY_MAX_RETRIES)),
                  fault_injector=inj)
     probe = _Probe(tr, capture=(7, 8, 22))
-    kernels = _fa_kernels()
+    kernels = _train_kernels()
     try:
         for f in kernels.values():
             f.launches = 0
@@ -2455,7 +2493,8 @@ def _recovery_matrix(checked, train_peak) -> dict:
         probe.close()
         del tr
     torch.cuda.empty_cache()
-    executed = _arm_common("matrix", res, launches, peak, train_peak, checked)
+    executed = _arm_common("matrix", tc, res, launches, peak, train_peak,
+                           checked)
     check(res.steps == TRAIN_STEPS and not res.diverged,
           f"matrix: {res.steps} steps, diverged {res.diverged}")
     specs = [str(s) for s in inj.specs]
@@ -2561,13 +2600,14 @@ def _recovery_replay(checked, train_peak, clean) -> dict:
                 del second
 
     rec = _recorder()
-    tr = Trainer(train_config(), eval_batch=EVAL_BATCH, device="cuda",
+    tc = train_config()
+    tr = Trainer(tc, eval_batch=EVAL_BATCH, device="cuda",
                  hooks=[RestoreAgain(), rec],
                  recovery=RecoveryConfig(lr_backoff=1.0, lr_floor=1.0),
                  fault_injector=FaultInjector.from_cli(RECOVERY_REPLAY,
                                                        seed=SEED))
     probe = _Probe(tr)
-    kernels = _fa_kernels()
+    kernels = _train_kernels()
     try:
         for f in kernels.values():
             f.launches = 0
@@ -2579,7 +2619,8 @@ def _recovery_replay(checked, train_peak, clean) -> dict:
         probe.close()
         del tr
     torch.cuda.empty_cache()
-    executed = _arm_common("replay", res, launches, peak, train_peak, checked)
+    executed = _arm_common("replay", tc, res, launches, peak, train_peak,
+                           checked)
     check(res.steps == TRAIN_STEPS and not res.diverged
           and res.rollbacks == 1 and "restored@10" in res.recovery_events,
           f"replay: {res.recovery_events}")
@@ -2621,7 +2662,7 @@ def _recovery_drain(checked, train_peak) -> dict:
             if tr.step == RECOVERY_DRAIN:
                 tr.request_drain()
 
-    kernels = _fa_kernels()
+    kernels = _train_kernels()
     for f in kernels.values():
         f.launches = 0
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
@@ -2715,7 +2756,8 @@ def _recovery_drain(checked, train_peak) -> dict:
                     + len(res2.loss_history))
         want = _want_launches(train_config().model.n_layers, executed,
                               len(res.val_ppl_history)
-                              + len(res2.val_ppl_history))
+                              + len(res2.val_ppl_history),
+                              _fused_launches(tc, executed))
         check(launches == want, f"drain: launches {launches} != {want}")
         check(peak <= PEAK_SLACK * train_peak, f"drain: peak {peak}")
         return {"failures": [f["error"] for f in sup.failures],
@@ -2758,7 +2800,7 @@ def _recovery_precursor(checked, train_peak) -> dict:
         plans.append((lr_in, out.lr, *state))
         return out
     reg.plan = plan
-    kernels = _fa_kernels()
+    kernels = _train_kernels()
     try:
         for f in kernels.values():
             f.launches = 0
@@ -2771,7 +2813,7 @@ def _recovery_precursor(checked, train_peak) -> dict:
         del reg.plan, tr, reg
     torch.cuda.empty_cache()
     passes = sum(b // _shard_rows(tc.gns, b) for b in res.batch_history)
-    _arm_common("precursor", res, launches, peak, train_peak, checked,
+    _arm_common("precursor", tc, res, launches, peak, train_peak, checked,
                 passes=passes)
     check(res.steps == TRAIN_STEPS and not res.diverged,
           f"precursor: {res.steps} steps, diverged {res.diverged}")
@@ -2826,7 +2868,7 @@ def phase_recovery(dev: dict, checked: set, train: dict) -> dict:
     arms["drain"] = _recovery_drain(checked, train_peak)
     arms["precursor"] = _recovery_precursor(checked, train_peak)
     total = {name: sum(a["launches"][name] for a in arms.values())
-             for name in _fa_kernels()}
+             for name in _train_kernels()}
     emit("recovery", card=dev["nvidia_smi"], nan_propagation=nan,
          train_tokens_per_s_full_length=train["tokens_per_s"],
          train_max_memory_allocated=train_peak, arms=arms, launches=total)
@@ -3288,7 +3330,7 @@ def _ssd_counters():
 def _all_counters():
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
                                                   flash_decode_paged_fwd)
-    return {**_fa_kernels(), "flash_decode_fwd": flash_decode_fwd,
+    return {**_train_kernels(), "flash_decode_fwd": flash_decode_fwd,
             "flash_decode_paged_fwd": flash_decode_paged_fwd,
             **_wkv_counters(), **_ssd_counters()}
 
@@ -3587,7 +3629,8 @@ def _compare_rwkv_grads(model, params, batch, trained: bool, eps: float,
 def check_parity_steps(ptc, init, res, what: str) -> None:
     """Trains ``ptc`` (the kernels' run's config at a reference backend)
     for PARITY_STEPS steps from ``init`` with fresh optimizer state: no
-    kernel launches, the plans of ``res``'s first steps, and its losses
+    model kernel launches (the fused AdamW kernel one a step, as in the
+    kernels' run), the plans of ``res``'s first steps, and its losses
     within PARITY_RTOL (``var_max`` reported)."""
     from repro_torch.launch.train import Trainer
     from repro_torch.optim import transforms as optim_tx
@@ -3600,8 +3643,10 @@ def check_parity_steps(ptc, init, res, what: str) -> None:
         "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     counters = _zero_counters()
     plain = plain_trainer.run(max_steps=PARITY_STEPS)
-    check(all(f.launches == 0 for f in counters.values()),
-          f"the reference {what} run launched a kernel")
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    want = {"fused_adamw": _fused_launches(ptc, PARITY_STEPS)}
+    check(launches == {k: v for k, v in want.items() if v},
+          f"the reference {what} run launched {launches}")
     n = PARITY_STEPS
     check(plain.seqlen_history == res.seqlen_history[:n]
           and plain.batch_history == res.batch_history[:n]
@@ -3659,6 +3704,7 @@ def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
     want = {n: 0 for n in counters}
     want["wkv6_fwd"] = n_layers * (RWKV_STEPS + n_evals)
     want["wkv6_bwd"] = n_layers * RWKV_STEPS
+    want["fused_adamw"] = _fused_launches(tc, RWKV_STEPS)
     check(launches == want, f"rwkv train launches {launches} != {want}")
     shapes = {_wkv_kernel_shape(p.batch_size, p.seq_len) for p in plans}
     check(shapes <= bwd_checked, f"bwd shapes {shapes - bwd_checked}")
@@ -3722,8 +3768,7 @@ def phase_train_rwkv(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
     check_parity_steps(rwkv_train_config("reference", remat="full"), init,
                        res, "rwkv")
     del init
-    return {"wkv6_fwd": launches["wkv6_fwd"],
-            "wkv6_bwd": launches["wkv6_bwd"]}
+    return {k: launches[k] for k in ("wkv6_fwd", "wkv6_bwd", "fused_adamw")}
 
 
 # ---------------------------------------------------------------------------
@@ -4259,6 +4304,7 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
     want = {n: 0 for n in counters}
     want["ssd_fwd"] = n_layers * (2 * ZAMBA_STEPS + n_evals)
     want["ssd_bwd"] = n_layers * ZAMBA_STEPS
+    want["fused_adamw"] = _fused_launches(tc, ZAMBA_STEPS)
     check(launches == want, f"zamba train launches {launches} != {want}")
     shapes = {_ssd_kernel_shape(p.batch_size, p.seq_len) for p in plans}
     check(shapes <= bwd_checked, f"bwd shapes {shapes - bwd_checked}")
@@ -4324,7 +4370,7 @@ def phase_train_zamba(dev: dict, fwd_checked: set, bwd_checked: set) -> dict:
     check_parity_steps(zamba_train_config("reference"), to_card(init), res,
                        "zamba")
     del init
-    return {"ssd_fwd": launches["ssd_fwd"], "ssd_bwd": launches["ssd_bwd"]}
+    return {k: launches[k] for k in ("ssd_fwd", "ssd_bwd", "fused_adamw")}
 
 
 # ---------------------------------------------------------------------------
@@ -4840,6 +4886,7 @@ def phase_train_moe(dev: dict, fa_checked: set) -> dict:
     for name in _fa_kernels():
         want[name] = n_layers * MOE_STEPS
     want["flash_attention_fwd"] = n_layers * (2 * MOE_STEPS + n_evals)
+    want["fused_adamw"] = _fused_launches(tc, MOE_STEPS)
     check(launches == want, f"moe train launches {launches} != {want}")
     shapes = {(p.batch_size, p.seq_len, MOE_D) for p in plans} | {
         (MOE_EVAL, S_TRAIN, MOE_D)}
@@ -4899,7 +4946,7 @@ def phase_train_moe(dev: dict, fa_checked: set) -> dict:
          norm_eps=tc.model.norm_eps, rtol=GRAD_RTOL, batches=grads)
     del trained, trainer, init, weights
     torch.cuda.empty_cache()
-    return {name: launches[name] for name in _fa_kernels()}
+    return {name: launches[name] for name in _train_kernels()}
 
 
 
@@ -4914,10 +4961,21 @@ QWEN_H, QWEN_D = 64, 80  # qwen3-32b: 64 heads of 80 (its 8 KV heads reach
 DIST_STEPS = 8
 # the sharded step against the unsharded one on the same card, every loss
 # and parameter leaf (within DIST_RTOL x the leaf's largest entry); fixed
-# before the first run: on a (1, 1) mesh both run the same kernels on the
-# same whole tensors, and only DTensor's own reductions (the clip's norm,
-# the variance statistics) may sum in another order
+# before the first run: on a (1, 1) mesh both run the same kernels and the
+# same optimizer chain on the same whole tensors, and only DTensor's own
+# reductions (the clip's norm, the variance statistics) may sum in another
+# order
 DIST_RTOL = 1e-6
+# the sharded step (the chain: the fused AdamW route takes no DTensors)
+# against the unsharded main path (the fused AdamW kernel): one card run
+# read the params 3.75e-6 of a leaf's largest entry apart after the 8
+# steps (the losses within 1e-6), since the two optimizers' roundings feed
+# the next steps' gradients and Adam's step turns a gradient entry's
+# rounding near eps into a visible part of the LR; a sharding fault (a
+# missed reduction, a shard's update dropped) moves a leaf by a good part
+# of its whole update over the steps, which the phase reports
+# (``update_leaf``)
+DIST_MAIN_RTOL = 1e-5
 DECODE_SHARDS = 4  # virtual sequence shards of the cache on the one card
 DECODE_POS = 300  # of 576 rows: shards 0-1 full, 2 holds 12 rows, 3 empty
 DECODE_ATOL = 1e-5  # the merged output against reference_decode
@@ -4943,24 +5001,30 @@ def phase_flash_d80() -> dict:
 
 
 def _dist_steps(step, state, batches, plans) -> tuple:
-    """(state, losses, var_max, seconds) of ``step`` over the plans."""
-    losses, var_max = [], []
+    """(state, losses, var_max, grad_norm, seconds) of ``step`` over the
+    plans."""
+    losses, var_max, norms = [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for batch, p in zip(batches, plans):
         state, m = step(state, batch, p.lr, p.grad_clip_scale)
         losses.append(m["loss"])
         var_max.append(m["var_max"])
+        norms.append(m["grad_norm"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return (state, [float(x) for x in losses], [float(x) for x in var_max],
-            seconds)
+    return (state, *([float(x) for x in xs] for xs in (losses, var_max,
+                                                       norms)), seconds)
 
 
 def _dist_train(rules, tc, trainer) -> dict:
     """DIST_STEPS SLW steps of the train phase's config from its initial
-    state and batches, through the unsharded step and the sharded one
-    (``fsdp`` rules): losses, var_max and every parameter leaf."""
+    state and batches, through the unsharded step (the main path, whose
+    optimizer is the fused AdamW kernel), the unsharded step on the chain
+    (``fused=None``) and the sharded one (``fsdp`` rules: DTensor leaves,
+    so the chain): losses, var_max and every parameter leaf, the sharded
+    step against the chain within DIST_RTOL and against the main path
+    within DIST_MAIN_RTOL."""
     from repro_torch.core.regulators import predict_trajectory
     from repro_torch.launch import steps as steps_lib
     from repro_torch.optim import transforms as optim_tx
@@ -4970,45 +5034,85 @@ def _dist_train(rules, tc, trainer) -> dict:
     tokens = sum(p.batch_size * p.seq_len for p in plans)
     init = trainer.state
     model = trainer.model
-    plain, plain_loss, plain_var, plain_s = _dist_steps(
-        steps_lib.make_train_step(model, tc.optimizer), _clone_state(init),
-        batches, plans)
-    sharded = steps_lib.shard_train_state(_clone_state(init), rules,
-                                          tc.model, tc.optimizer)
-    kernels = _fa_kernels()
-    for f in kernels.values():
-        f.launches = 0
-    sharded, loss, var, sharded_s = _dist_steps(
-        steps_lib.make_train_step(model, tc.optimizer, rules), sharded,
-        batches, plans)
-    launches = {name: f.launches for name, f in kernels.items()}
-    want = {name: tc.model.n_layers * DIST_STEPS for name in kernels}
-    check(launches == want, f"sharded step launches {launches} != {want}")
+    chain = optim_tx.build_optimizer(tc.optimizer)._replace(fused=None)
+    kernels = _train_kernels()
+    runs = {}
+    for name, step, state in (
+            ("main", steps_lib.make_train_step(model, tc.optimizer),
+             _clone_state(init)),
+            ("chain", steps_lib.make_train_step(model, tc.optimizer,
+                                                optimizer=chain),
+             _clone_state(init)),
+            ("sharded", steps_lib.make_train_step(model, tc.optimizer, rules),
+             steps_lib.shard_train_state(_clone_state(init), rules, tc.model,
+                                         tc.optimizer))):
+        for f in kernels.values():
+            f.launches = 0
+        state, loss, var, norm, seconds = _dist_steps(step, state, batches,
+                                                      plans)
+        runs[name] = {"params": optim_tx.tree_leaves(steps_lib.unshard_tree(
+                          state["params"])), "loss": loss, "var": var,
+                      "grad_norm": norm, "seconds": seconds,
+                      "launches": {k: f.launches for k, f in kernels.items()},
+                      "placements": optim_tx.tree_leaves(state["params"])[0]}
+        del state
+    flash = tc.model.n_layers * DIST_STEPS
+    for name, fused in (("main", _fused_launches(tc, DIST_STEPS)),
+                        ("chain", 0), ("sharded", 0)):
+        want = _want_launches(tc.model.n_layers, DIST_STEPS, 0, fused)
+        check(runs[name]["launches"] == want,
+              f"{name} step launches {runs[name]['launches']} != {want}")
     rel = lambda a, b: abs(a - b) / abs(b)
-    loss_err = max(rel(a, b) for a, b in zip(loss, plain_loss))
-    var_err = max(rel(a, b) for a, b in zip(var, plain_var))
-    check(loss_err <= DIST_RTOL, f"sharded losses: {loss_err}")
-    leaves = optim_tx.tree_leaves(steps_lib.unshard_tree(sharded["params"]))
-    ref = optim_tx.tree_leaves(plain["params"])
-    leaf_err = max(((a - b).abs().max() / b.abs().max()).item()
-                   for a, b in zip(leaves, ref))
-    check(leaf_err <= DIST_RTOL, f"sharded params: {leaf_err}")
-    bits = (loss == plain_loss and all(torch.equal(a, b)
-                                       for a, b in zip(leaves, ref)))
-    return {"steps": DIST_STEPS, "tokens": tokens,
+    sharded = runs["sharded"]
+    err, bits = {}, None
+    for ref, rtol in (("chain", DIST_RTOL), ("main", DIST_MAIN_RTOL)):
+        r = runs[ref]
+        err[ref] = {
+            "loss": max(rel(a, b) for a, b in zip(sharded["loss"], r["loss"])),
+            "var_max": max(rel(a, b) for a, b in zip(sharded["var"],
+                                                     r["var"])),
+            "param_leaf": max(((a - b).abs().max() / b.abs().max()).item()
+                              for a, b in zip(sharded["params"],
+                                              r["params"]))}
+        check(err[ref]["loss"] <= rtol,
+              f"sharded losses against the {ref} step: {err[ref]['loss']}")
+        check(err[ref]["param_leaf"] <= rtol, f"sharded params against the "
+              f"{ref} step: {err[ref]['param_leaf']}")
+        if bits is None:
+            bits = (sharded["loss"] == r["loss"] and all(
+                torch.equal(a, b) for a, b in zip(sharded["params"],
+                                                  r["params"])))
+    s = {name: r["seconds"] for name, r in runs.items()}
+    # each leaf's whole update, max |p_8 - p_0| over max |p_0| (leaves
+    # that start at 0 left out): the least and the median
+    update = sorted(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(runs["main"]["params"],
+                                    optim_tx.tree_leaves(init["params"]))
+                    if b.abs().max() > 0)
+    update = {"min": update[0], "median": update[len(update) // 2]}
+    # where the main path and the chain part: each step's grad_norm (the
+    # kernel sums in double, the chain in fp32), relative
+    norm_gaps = [rel(a, b) for a, b in zip(runs["main"]["grad_norm"],
+                                           runs["chain"]["grad_norm"])]
+    return {"steps": DIST_STEPS, "tokens": tokens, "update_leaf": update,
+            "grad_norm_gap_main_chain": norm_gaps,
             "plans": [(p.batch_size, p.seq_len) for p in plans],
-            "max_rel_err": {"loss": loss_err, "var_max": var_err,
-                            "param_leaf": leaf_err},
-            "bits_equal": bits, "launches": launches,
-            "tokens_per_s": {"sharded": tokens / sharded_s,
-                             "unsharded": tokens / plain_s},
-            "seconds": {"sharded": sharded_s, "unsharded": plain_s},
+            "max_rel_err": err["chain"], "max_rel_err_main": err["main"],
+            "bits_equal": bits,
+            "launches": {**{k: sharded["launches"][k] for k in _fa_kernels()},
+                         "fused_adamw": runs["main"]["launches"][
+                             "fused_adamw"]},
+            "tokens_per_s": {"sharded": tokens / s["sharded"],
+                             "unsharded": tokens / s["main"],
+                             "unsharded_chain": tokens / s["chain"]},
+            "seconds": {"sharded": s["sharded"], "unsharded": s["main"],
+                        "unsharded_chain": s["chain"]},
             # the warm-up steps are short (64 to 3,600 tokens): what the
-            # sharded step adds to each is DTensor's host dispatch
-            "host_overhead_ms_per_step": (sharded_s - plain_s)
+            # sharded step adds to each is DTensor's host dispatch (against
+            # the unsharded step on the same chain)
+            "host_overhead_ms_per_step": (s["sharded"] - s["chain"])
             / DIST_STEPS * 1e3,
-            "placements": str(tuple(optim_tx.tree_leaves(
-                sharded["params"])[0].placements))}
+            "placements": str(tuple(sharded["placements"].placements))}
 
 
 def _dist_decode(mesh, main_lengths, cache_len: int) -> dict:
@@ -5428,6 +5532,7 @@ def phase_train_xl(dev: dict, checked: set) -> dict:
     for name in _fa_kernels():
         want[name] = n_layers * XL_STEPS
     want["flash_attention_fwd"] = n_layers * (2 * XL_STEPS + n_evals)
+    want["fused_adamw"] = _fused_launches(tc, XL_STEPS)
     check(launches == want, f"xl train launches {launches} != {want}")
     shapes = {(p.batch_size, p.seq_len) for p in plans} | {(XL_EVAL,
                                                             S_TRAIN)}
@@ -5505,7 +5610,7 @@ def phase_train_xl(dev: dict, checked: set) -> dict:
          batch=f"{XL_REMAT_B}x{S_TRAIN}", rtol=REMAT_RTOL,
          policies=policies)
     return {"params": params, "launches": {
-        "train_gpt2_1p5b": {n: launches[n] for n in _fa_kernels()},
+        "train_gpt2_1p5b": {n: launches[n] for n in _train_kernels()},
         "remat_gpt2_1p5b": remat_launches}}
 
 
@@ -5603,6 +5708,139 @@ def phase_serve_xl(dev: dict, params, fa_checked: set,
     check(left < 2**26, f"phase serve_gpt2_1p5b left {left} bytes allocated")
     return {"serve_gpt2_1p5b": {k: launches[k] for k in
                                 ("flash_attention_fwd", "flash_decode_fwd")}}
+
+
+# the fused AdamW phase's parameter sets: the benchmark's two models
+ADAMW_MODELS = (("deepseek-moe-16b", {"n_layers": 4}), ("gpt2-1.5b", {}))
+
+
+def _adamw_check(tx, shapes, hyper) -> dict:
+    """One step of the default AdamW chain ``tx`` from its initial state
+    over leaves of ``shapes`` (params N(0, 0.02), gradients N(0, 1e-2)
+    from SEED), through the fused route and through the chain (``update``
+    + ``apply_updates``) from the same inputs, held at the card test's
+    tolerances (``tests/test_torch_fused_adamw.py``): count exact; m and v
+    within 2e-6 of the entry plus 2e-6 of the leaf's largest entry; params
+    within 2 float32 ulps plus 1e-5 of the LR; the five telemetry scalars
+    within 1e-5.  The kernel's p, m and v wait on the host while the chain
+    runs, so the card holds one set of both at a time.  Returns the worst
+    readings."""
+    from repro_torch.kernels.fused_adamw import TELEMETRY, fused_adamw
+    from repro_torch.optim import transforms as optim_tx
+
+    def draw(seed, scale):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return optim_tx.tree_map(lambda m: torch.randn(
+            m.shape, generator=gen, device="cuda") * scale, shapes)
+    grads = draw(SEED + 1, 1e-2)  # the kernel leaves them as they are
+    params = draw(SEED, 0.02)
+    launches = fused_adamw.launches
+    _, opt, tel = optim_tx.optimizer_step(tx, grads, tx.init(params), params,
+                                          hyper)
+    check(fused_adamw.launches == launches + 1, "the fused route did not "
+          "launch the kernel")
+    host = lambda tree: [t.cpu() for t in optim_tx.tree_leaves(tree)]
+    fused = {"p": host(params), "m": host(opt["adam"]["m"]),
+             "v": host(opt["adam"]["v"]), "count": int(opt["adam"]["count"]),
+             "tel": {k: float(v) for k, v in tel.items()}}
+    del params, opt, tel
+    params = draw(SEED, 0.02)
+    with torch.no_grad():
+        u, opt, tel = tx.update(grads, tx.init(params), params, hyper)
+        optim_tx.apply_updates(params, u)
+    del u, grads
+    check(list(fused["tel"]) == list(tel) == list(TELEMETRY),
+          f"telemetry keys {list(fused['tel'])} != {list(tel)}")
+    check(fused["count"] == int(opt["adam"]["count"]) == 1, "count")
+    worst = {}
+    for key, ref, rtol, atol in (
+            ("p", params, 2.4e-7, lambda b: 1e-5 * hyper["lr"]),
+            ("m", opt["adam"]["m"], 2e-6, lambda b: 2e-6 * b.abs().max()),
+            ("v", opt["adam"]["v"], 2e-6, lambda b: 2e-6 * b.abs().max())):
+        worst[key] = 0.0
+        for i, (a, b) in enumerate(zip(fused[key],
+                                       optim_tx.tree_leaves(ref))):
+            gap = (a.to("cuda") - b).abs()
+            over = float((gap - rtol * b.abs()).max() - atol(b))
+            check(over <= 0, f"{key} leaf {i}: {float(gap.max())} past the "
+                  f"tolerance")
+            worst[key] = max(worst[key], float(gap.max() / b.abs().max()))
+        fused[key] = None
+    for k, v in tel.items():
+        worst[k] = abs(fused["tel"][k] - float(v)) / abs(float(v))
+        check(worst[k] <= 1e-5, f"telemetry {k}: {fused['tel'][k]} against "
+              f"the chain's {float(v)}")
+    del params, opt, tel
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_fused_adamw(dev: dict) -> dict:
+    """The default AdamW chain's fused route (``optimizer_step``: the
+    kernel of ``kernels/fused_adamw``) over every leaf of each model in
+    :data:`ADAMW_MODELS`, fp32: first one step from the chain's initial
+    state against the chain from the same inputs (:func:`_adamw_check`),
+    then one step of each timed, params N(0, 0.02), gradients N(0, 1e-2).
+    Bound: pass 1 reads g, pass 2 reads p, g, m, v and writes p, m, v: 8 N
+    x 4 bytes at 3.35 TB/s.  Also each one's device memory beyond the
+    params, gradients and moments, and the launches."""
+    from repro_torch.configs import OptimizerConfig, get_arch
+    from repro_torch.kernels.fused_adamw import fused_adamw
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import transforms as optim_tx
+    out = {}
+    for name, over in ADAMW_MODELS:
+        cfg = dataclasses.replace(get_arch(name), **over)
+        shapes = model_zoo.abstract_params(cfg)
+        tx = optim_tx.build_optimizer(OptimizerConfig())
+        hyper = {"lr": 1e-4, "clip_scale": 1.0}
+        worst = _adamw_check(tx, shapes, hyper)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        draw = lambda m, s: torch.randn(m.shape, generator=gen,
+                                        device="cuda") * s
+        params = optim_tx.tree_map(lambda m: draw(m, 0.02), shapes)
+        grads = optim_tx.tree_map(lambda m: draw(m, 1e-2), shapes)
+        n = sum(p.numel() for p in optim_tx.tree_leaves(params))
+        state = {"opt": tx.init(params)}
+
+        def fused():
+            _, state["opt"], _ = optim_tx.optimizer_step(
+                tx, grads, state["opt"], params, hyper)
+
+        def plain():
+            with torch.no_grad():
+                u, state["opt"], _ = tx.update(grads, state["opt"], params,
+                                               hyper)
+                optim_tx.apply_updates(params, u)
+
+        extra = {}
+        for what, fn in (("fused", fused), ("plain", plain)):
+            fn()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            extra[what] = torch.cuda.max_memory_allocated() - base
+        launches = fused_adamw.launches
+        ms = device_ms(fused, iters=10)
+        check(fused_adamw.launches - launches >= 11,
+              f"{name}: the fused route launched the kernel "
+              f"{fused_adamw.launches - launches} times in 11 calls")
+        plain_ms = call_ms(plain, 3, 1)
+        nbytes = 8 * n * 4
+        least, by = bound(nbytes, 0.0, torch.float32)
+        out[name] = {"params": n, "leaves": len(optim_tx.tree_leaves(params)),
+                     "max_rel_err": worst,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": least,
+                     "bound_by": by, "roofline_pct": 100 * least / ms,
+                     "gb_per_s": nbytes / ms / 1e6,
+                     "fused_extra_bytes": extra["fused"],
+                     "plain_extra_bytes": extra["plain"]}
+        emit("fused_adamw", card=dev["nvidia_smi"], model=name, **out[name])
+        del params, grads, state, tx
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -5723,6 +5961,8 @@ def main() -> int:
                                        PROMPT_LEN + GEN)
     xl = phase_train_xl(dev, xl_fa)
     xl_serve = phase_serve_xl(dev, xl.pop("params"), xl_fa, xl_fd)
+    torch.cuda.empty_cache()
+    adamw = phase_fused_adamw(dev)
 
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
@@ -5761,6 +6001,13 @@ def main() -> int:
                         "replaces": ref + rep,
                         "launches": sum(counts.values()),
                         "launches_by_path": counts, **t})
+    counts = {path: c["fused_adamw"] for path, c in by_path.items()
+              if c.get("fused_adamw")}
+    for name, t in adamw.items():
+        entries.append({"name": "fused_adamw", "route": "cuda",
+                        "source": src + "fused_adamw.cu", "replaces": None,
+                        "launches": sum(counts.values()),
+                        "launches_by_path": counts, "model": name, **t})
     emit("done", seconds=time.perf_counter() - START)
     print(json.dumps({"kernels": entries}), flush=True)
     print(dev["nvidia_smi"], flush=True)

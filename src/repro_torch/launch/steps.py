@@ -204,7 +204,8 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
     per-leaf vectors), ``lr`` and the GNS batch sizes floats.
     ``optimizer`` replaces the chain ``opt_cfg`` builds; ``rules`` shard
     the step (see the module's docstring: the state and batch are then
-    DTensors placed by those rules).  ``sketch_signs(i, n, device)`` gives
+    DTensors placed by those rules, and the chain runs without its fused
+    route).  ``sketch_signs(i, n, device)`` gives
     group ``i``'s ``n`` signs (default :class:`SketchSigns` of
     ``gns.sketch_seed``)."""
     if opt_cfg.grad_compression:
@@ -213,6 +214,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
             "optim.compression.compressed_allreduce yet")
     tx = optimizer if optimizer is not None else \
         optim_tx.build_optimizer(opt_cfg)
+    if rules is not None:
+        # the fused AdamW route takes plain tensors, not DTensors
+        tx = tx._replace(fused=None)
     axes = model_zoo.param_axes(model.cfg) if rules is not None else None
     gns_cfg = gns if (gns is not None and gns.enabled) else None
     if gns_cfg is not None and gns_cfg.precursor_window > 0:
@@ -274,10 +278,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
             if leaf_lr is not None:
                 hyper["leaf_lr_scale"] = _vector(leaf_lr, leaves[0].device)
             with trace.span("step.optimizer", device=True):
-                updates, new_opt, telemetry = tx.update(
-                    optim_tx.tree_unflatten(params, grads), state["opt"],
+                new_params, new_opt, telemetry = optim_tx.optimizer_step(
+                    tx, optim_tx.tree_unflatten(params, grads), state["opt"],
                     params, hyper)
-                new_params = optim_tx.apply_updates(params, updates)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         return new_state, {**metrics, **telemetry, **gns_tel, "lr": lr}

@@ -26,6 +26,15 @@ leaf.  Params are nested dicts and lists of tensors (the port keeps
 ``torch._foreach_*`` ops over the leaves, and the Adam moments and the
 params are updated in place: the reference donates those buffers to its
 jitted step.  Telemetry stays on the device.
+
+:func:`optimizer_step` runs a chain and updates the params.  The default
+AdamW chain (clip -> adam -> decay -> lr, no AGC, ``lr_scales`` or per-leaf
+telemetry) has a fused route beside its links: on CUDA leaves it updates
+the params in place in one kernel pass (``kernels/fused_adamw``), and
+raises for leaves that are not plain fp32 tensors of one card; off the
+card the chain itself, its plain version, runs.  A step that trains
+DTensors (``launch/steps.py`` under sharding rules) drops the route
+(``fused=None``) and runs the chain.
 """
 from __future__ import annotations
 
@@ -35,9 +44,11 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
+from repro_torch.core import trace
 from repro_torch.core.stability import momentum_stats, variance_stats
 from repro_torch.core.telemetry import (leaf_groups, leaf_norms,
                                         leaf_sq_norms, leaf_var_max)
+from repro_torch.kernels import fused_adamw as kernel
 
 Hyper = Dict[str, Any]
 Telemetry = Dict[str, torch.Tensor]
@@ -71,11 +82,16 @@ def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
 
 
 class GradientTransform(NamedTuple):
-    """One chain link."""
+    """One chain link.  ``fused(grads, state, params, hyper)``, where a
+    chain has one, does ``update`` and the params' update in one in-place
+    pass and returns ``(state, telemetry)``, or None for leaves it does not
+    take (then ``update`` runs)."""
 
     name: str
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Hyper], Tuple[Any, Any, Telemetry]]
+    fused: Optional[Callable[[Any, Any, Any, Hyper],
+                             Optional[Tuple[Any, Telemetry]]]] = None
 
 
 def chain(*transforms: GradientTransform) -> GradientTransform:
@@ -103,6 +119,24 @@ def apply_updates(params: Any, updates: Any) -> Any:
     """``p - u``, in place on the params' storage; returns ``params``."""
     torch._foreach_sub_(tree_leaves(params), tree_leaves(updates))
     return params
+
+
+@torch.no_grad()
+def optimizer_step(tx: GradientTransform, grads: Any, state: Any,
+                   params: Any, hyper: Hyper) -> Tuple[Any, Any, Telemetry]:
+    """One step of ``tx`` on ``grads``, the params updated in place:
+    ``(params, state, telemetry)``: ``tx.fused`` where the chain has a fused
+    route that takes the leaves, else ``update`` and :func:`apply_updates`.
+    Counts, while the tracer records, the parameter elements updated
+    (``optim.params``) and those the fused route updated (``optim.fused``)."""
+    n = sum(p.numel() for p in tree_leaves(params)) if trace.enabled() else 0
+    trace.count("optim.params", n)
+    got = tx.fused(grads, state, params, hyper) if tx.fused else None
+    if got is not None:
+        trace.count("optim.fused", n)
+        return (params, *got)
+    updates, state, telemetry = tx.update(grads, state, params, hyper)
+    return apply_updates(params, updates), state, telemetry
 
 
 def abstract_chain_state(tx: GradientTransform, params_shapes: Any) -> Any:
@@ -485,7 +519,61 @@ def build_optimizer(cfg: OptimizerConfig) -> GradientTransform:
     if per_leaf:
         ts.append(per_leaf_update_telemetry())
     ts.append(scale_by_lr())
-    return chain(*ts)
+    tx = chain(*ts)
+    if (cfg.optimizer == "adamw" and cfg.agc_clip <= 0 and not cfg.lr_scales
+            and not per_leaf):
+        tx = tx._replace(fused=fused_adamw_step(cfg))
+    return tx
+
+
+def _plain_f32(t: Any, device: torch.device) -> bool:
+    """A float32 tensor on ``device`` that is no tensor subclass (a DTensor
+    or a fake tensor is one)."""
+    return (type(t) is torch.Tensor and t.dtype == torch.float32
+            and t.device == device)
+
+
+def fused_adamw_step(cfg: OptimizerConfig) -> Callable:
+    """The fused route of the default AdamW chain of ``cfg`` (see
+    :class:`GradientTransform`): on CUDA leaves the kernel of
+    ``kernels/fused_adamw`` (its leaf table built once a parameter set); it
+    raises for CUDA leaves that are not plain fp32 tensors of one card, and
+    takes no others (returns None: the chain runs).  The chain's state tree
+    comes back with the same ``m`` and ``v`` tensors and a new ``count``,
+    as the chain's does; the five telemetry scalars keep their names."""
+    tables: List[Any] = [None]  # the last parameter set's table
+
+    def step(grads, state, params, hyper):
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        dev = ps[0].device
+        if dev.type != "cuda":
+            return None
+        adam = state["adam"]
+        ms, vs = tree_leaves(adam["m"]), tree_leaves(adam["v"])
+        bad = next((t for leaves in (ps, gs, ms, vs) for t in leaves
+                    if not _plain_f32(t, dev)), None)
+        if bad is not None:
+            raise TypeError(
+                f"the fused AdamW route takes plain float32 tensors on {dev}, "
+                f"got a {type(bad).__name__} of {bad.dtype} on {bad.device}; "
+                f"the chain without it (fused=None) takes any leaves")
+        table = tables[0]
+        if table is None or not table.holds(ps, ms, vs):
+            decay = [cfg.weight_decay != 0.0 and d for d in
+                     tree_leaves(decay_mask_tree(params, cfg.decay_mask))]
+            table = tables[0] = kernel.LeafTable(
+                ps, ms, vs, decay, leaf_groups(params).group_of)
+        count, telemetry = kernel.fused_adamw(
+            table, gs, adam["count"], lr=float(hyper["lr"]),
+            clip=cfg.grad_clip > 0,
+            limit=float(cfg.grad_clip * hyper["clip_scale"]),
+            b1=cfg.beta1, b2=cfg.beta2, eps=cfg.eps,
+            weight_decay=cfg.weight_decay,
+            leaf_lr_scale=hyper.get("leaf_lr_scale"))
+        torch.autograd.graph.increment_version(ps + ms + vs)
+        return ({**state, "adam": {**adam, "count": count}}, telemetry)
+
+    return step
 
 
 def migrate_opt_state(opt: Dict[str, Any]) -> Dict[str, Any]:

@@ -21,6 +21,14 @@ the CPU.
   ``repro_torch.bridge`` and through the checkpoint format (either
   package restores the other's), bit for bit, and a step from the
   carried state matches the reference's step.
+* The fused route of the default AdamW chain (``optimizer_step``): which
+  chains have it, that it takes CUDA leaves alone (off the card the
+  chain, its plain version, runs with the chain's state tree, tensors,
+  telemetry keys and bits) and raises for CUDA leaves that are no plain
+  fp32 tensors, that the sharded step drops it, the ``optim.fused`` /
+  ``optim.params`` counters, and the kernel's chunk table.  The kernel
+  itself is held against the chain on the card
+  (``test_torch_fused_adamw.py``).
 """
 import types
 
@@ -31,7 +39,9 @@ import torch
 from repro_torch import bridge
 from repro_torch.checkpoint import restore, save
 from repro_torch.configs import OptimizerConfig, get_arch, reduced
+from repro_torch.core import trace
 from repro_torch.core.telemetry import leaf_groups
+from repro_torch.kernels.fused_adamw import TELEMETRY, chunk_table
 from repro_torch.optim import adam as tadam
 from repro_torch.optim import transforms as ttx
 
@@ -349,3 +359,233 @@ def test_abstract_chain_state_is_meta():
         assert [(tuple(a.shape), a.dtype) for a in abstract
                 if a is not None] == [(tuple(r.shape), r.dtype)
                                       for r in real if r is not None]
+
+
+# ---------------------------------------------------------------------------
+# the fused route of the default AdamW chain
+# ---------------------------------------------------------------------------
+
+# chain config, and whether its optimizer has the fused route
+ROUTES = {"adamw": ({}, True),
+          "adamw_std_no_clip": (dict(decay_mask="std", grad_clip=0.0,
+                                     weight_decay=0.1), True),
+          "adamw_no_decay": (dict(weight_decay=0.0), True),
+          **{name: (kw, False) for name, kw in CHAINS.items()}}
+
+
+def _toy_grads(params, seed, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    return ttx.tree_map(lambda p: torch.randn(p.shape, generator=gen
+                                              ).to(dtype), params)
+
+
+def _traced_step(tx, grads, state, params, hyper):
+    """``optimizer_step`` inside one span: its result and the span's
+    counters."""
+    with trace.tracing():
+        with trace.span("step"):
+            got = ttx.optimizer_step(tx, grads, state, params, hyper)
+    (sp,) = trace.take()
+    return got, sp.counts
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_fused_route_selection_and_counters(name):
+    """Only the default AdamW chain (any decay mask, clip or decay) has the
+    fused route, and the route takes no CPU leaves: every chain runs its
+    links here.  Under the tracer the step counts every parameter element
+    in ``optim.params``, and in ``optim.fused`` those a route that takes
+    the leaves updated (here a stand-in route of the chain's own links)."""
+    kw, fused = ROUTES[name]
+    params = _unstack(_toy_host(np.random.default_rng(3)))
+    tx = ttx.build_optimizer(OptimizerConfig(**kw))
+    assert (tx.fused is not None) == fused
+    state = tx.init(params)
+    n = sum(p.numel() for p in ttx.tree_leaves(params))
+    hyper = {"lr": 1e-2, "clip_scale": 1.0}
+    if name == "leaf_lr_scale":
+        hyper["leaf_lr_scale"] = torch.full(
+            (len(leaf_groups(params).labels),), 0.5)
+    if fused:
+        assert tx.fused(_toy_grads(params, 1), state, params, hyper) is None
+    (_, state, tel), counts = _traced_step(tx, _toy_grads(params, 1), state,
+                                           params, hyper)
+    assert counts == {"optim.params": n}
+    assert {"grad_norm", "grad_norm_clipped", "var_max"} <= set(tel)
+
+    def links(grads, state, params, hyper):
+        updates, state, tel = tx.update(grads, state, params, hyper)
+        ttx.apply_updates(params, updates)
+        return state, tel
+    (_, _, tel), counts = _traced_step(tx._replace(fused=links),
+                                       _toy_grads(params, 2), state, params,
+                                       hyper)
+    assert counts == {"optim.params": n, "optim.fused": n}
+    # the tracer off: nothing counted, nothing recorded
+    ttx.optimizer_step(tx, _toy_grads(params, 3), state, params, hyper)
+    assert trace.take() == []
+
+
+@pytest.mark.parametrize("case", ["adamw", "adamw_std_no_clip",
+                                  "adamw_no_decay", "adamw_leaf_lr"])
+def test_fused_route_keeps_the_chain_state_and_numbers(case):
+    """Three steps of the default AdamW chain through ``optimizer_step`` on
+    the CPU (the route takes no CPU leaves: the chain, its plain version,
+    runs) against the chain's ``update`` and ``apply_updates`` on a copy:
+    the same state tree with the same ``m`` and ``v`` tensors, a new
+    ``count``, the chain's five telemetry keys, and the same bits; the
+    kernel keeps the same tree, tensors and keys on the card
+    (``test_torch_fused_adamw.py``)."""
+    kw = ROUTES.get(case, ({}, True))[0]  # adamw_leaf_lr: the default
+    tx = ttx.build_optimizer(OptimizerConfig(**kw))
+    params = _unstack(_toy_host(np.random.default_rng(4)))
+    twin = ttx.tree_map(torch.clone, params)
+    state, twin_state = tx.init(params), tx.init(twin)
+    m0, v0 = (ttx.tree_leaves(state["adam"][k]) for k in ("m", "v"))
+    for step in range(3):
+        hyper = {"lr": 1e-2 * (step + 1), "clip_scale": 0.5 + step}
+        if case == "adamw_leaf_lr":
+            hyper["leaf_lr_scale"] = torch.linspace(
+                0.25, 1.5, len(leaf_groups(params).labels))
+        grads = _toy_grads(params, 10 + step)
+        count_before = state["adam"]["count"]
+        got, new_state, tel = ttx.optimizer_step(tx, grads, state, params,
+                                                 hyper)
+        assert got is params
+        assert sorted(new_state) == ["adam", "clip", "decay", "lr"]
+        assert sorted(new_state["adam"]) == ["count", "m", "v"]
+        assert all(a is b for a, b in zip(
+            ttx.tree_leaves(new_state["adam"]["m"]), m0))
+        assert all(a is b for a, b in zip(
+            ttx.tree_leaves(new_state["adam"]["v"]), v0))
+        assert new_state["adam"]["count"] is not count_before
+        assert int(count_before) == step
+        with torch.no_grad():
+            u, twin_state, twin_tel = tx.update(_toy_grads(params, 10 + step),
+                                                twin_state, twin, hyper)
+            ttx.apply_updates(twin, u)
+        assert list(tel) == list(twin_tel) == list(TELEMETRY)
+        for key in TELEMETRY:
+            assert torch.equal(tel[key], twin_tel[key]), (key, step)
+        state = new_state
+    for a, b in zip(ttx.tree_leaves((params, state)),
+                    ttx.tree_leaves((twin, twin_state))):
+        assert torch.equal(a, b)
+    assert int(state["adam"]["count"]) == 3
+
+
+def test_other_dtypes_and_dtensors_take_the_chain(tmp_path):
+    """On the CPU a gradient of another dtype, or DTensor leaves (one gloo
+    rank), run the default AdamW chain's links, with its numbers."""
+    import torch.distributed as dist
+    from repro_torch.distributed.compat import (Replicate, distribute_tensor,
+                                                init_device_mesh)
+    tx = ttx.build_optimizer(OptimizerConfig())
+    params = _unstack(_toy_host(np.random.default_rng(5)))
+    n = sum(p.numel() for p in ttx.tree_leaves(params))
+    hyper = {"lr": 1e-2, "clip_scale": 1.0}
+    twin = ttx.tree_map(torch.clone, params)
+
+    def grads():  # the chain clips fp32 gradients in place: new ones a call
+        g = _toy_grads(params, 6)
+        g["bias"] = g["bias"].to(torch.bfloat16)
+        return g
+
+    (_, _, tel), counts = _traced_step(tx, grads(), tx.init(params), params,
+                                       hyper)
+    assert counts == {"optim.params": n}
+    u, _, twin_tel = tx.update(grads(), tx.init(twin), twin, hyper)
+    ttx.apply_updates(twin, u)
+    assert all(torch.equal(a, b) for a, b in zip(ttx.tree_leaves(params),
+                                                 ttx.tree_leaves(twin)))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        place = lambda t: distribute_tensor(t, mesh, [Replicate()])
+        dparams = ttx.tree_map(place, twin)
+        dgrads = ttx.tree_map(place, _toy_grads(twin, 7))
+        dstate = ttx.tree_map(place, tx.init(twin))
+        (_, _, dtel), counts = _traced_step(tx, dgrads, dstate, dparams,
+                                            hyper)
+        assert counts == {"optim.params": n}
+        assert sorted(dtel) == sorted(TELEMETRY)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fake_f32", "bf16"])
+def test_fused_route_raises_for_other_cuda_leaves(dtype):
+    """On CUDA leaves the route runs the kernel or raises: a tensor
+    subclass (here a fake tensor; a DTensor is one too) or another dtype is
+    refused before any launch, never sent to the chain unseen."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    tx = ttx.build_optimizer(OptimizerConfig())
+    with FakeTensorMode():
+        params = {"w": torch.empty(4, 3, device="cuda", dtype=dtype),
+                  "b": torch.empty(3, device="cuda", dtype=dtype)}
+        grads = ttx.tree_map(torch.empty_like, params)
+        state = tx.init(params)
+        with pytest.raises(TypeError, match="plain float32 tensors"):
+            tx.fused(grads, state, params, {"lr": 1e-2, "clip_scale": 1.0})
+
+
+def test_sharded_step_drops_the_fused_route(tmp_path, monkeypatch):
+    """Under sharding rules (one gloo rank, a (1, 1) mesh, ``fsdp``) the
+    train step runs the default AdamW chain without its fused route, on
+    DTensor leaves, and lands where the unsharded step does."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    cfg = reduced(get_arch("gpt2-117m"))
+    opt = OptimizerConfig()
+    model = model_zoo.build_model(cfg)
+    state = steps_lib.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                       opt, CPU)
+    batch = {k: torch.from_numpy(v).long() for k, v in
+             model_zoo.make_train_batch(0, cfg, 2, 16).items()}
+    seen = []
+    step_of = ttx.optimizer_step
+
+    def spy(tx, grads, state, params, hyper):
+        seen.append(tx.fused)
+        return step_of(tx, grads, state, params, hyper)
+    monkeypatch.setattr(ttx, "optimizer_step", spy)
+    clone = lambda tree: ttx.tree_map(lambda t: t.detach().clone(), tree)
+    plain, _ = steps_lib.make_train_step(model, opt)(clone(state), batch,
+                                                     1e-3)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        rules = ShardingRules.make(make_host_mesh((1, 1), ("data", "model")),
+                                   "fsdp")
+        sharded = steps_lib.shard_train_state(clone(state), rules, cfg, opt)
+        sharded, _ = steps_lib.make_train_step(model, opt, rules)(
+            sharded, batch, 1e-3)
+        got = steps_lib.unshard_tree(sharded["params"])
+    finally:
+        dist.destroy_process_group()
+    assert seen[0] is not None and seen[1] is None
+    for a, b in zip(ttx.tree_leaves(got), ttx.tree_leaves(plain["params"])):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("lengths,chunk", [
+    ([1], 16384), ([0, 5, 0], 4), ([16383, 16384, 16385], 16384),
+    ([3, 70001, 0, 1, 8], 16384), ([9, 4, 1, 12], 4)])
+def test_chunk_table_covers_every_element_once(lengths, chunk):
+    """The kernel's chunks, leaf by leaf in order, cover each leaf's
+    elements once: chunk j of a leaf is [j * chunk, min((j + 1) * chunk,
+    n))."""
+    table = chunk_table(lengths, chunk)
+    assert table.dtype == np.int32 and table.shape[1] == 2
+    want = [(leaf, j) for leaf, n in enumerate(lengths)
+            for j in range(-(-n // chunk))]
+    assert [tuple(r) for r in table.tolist()] == want
+    covered = [0] * len(lengths)
+    for leaf, j in table.tolist():
+        covered[leaf] += min(chunk, lengths[leaf] - j * chunk)
+    assert covered == list(lengths)
